@@ -1,0 +1,194 @@
+"""The search's three incremental sweeps, in plain PyTorch.
+
+Port of `_score_from_hx`, `_sweep_delta`, `_sweep_moves` and
+`_sweep_moves3` (ambigram_tpu/solver/search.py), which are XLA loops in
+the JAX package, not Pallas kernels. Each sweep scores every move of its
+neighborhood for every population member from the threaded row values
+hx = X @ H.T and one column delta per move, then applies each member's
+best move if it strictly improves. The semantics are the JAX ones, to
+the bit:
+
+- moves are scored in chunks of `chunk` (128); within a chunk the argmin
+  takes the first minimum (for `sweep_delta` over [+chunk | -chunk]);
+  across chunks a chunk replaces the running best only on a strict
+  improvement;
+- a move that would leave the box [0, x_ub] scores as the current score,
+  so it never wins;
+- a member applies its move only when best < score - 1e-6.
+
+Column deltas are gathered from H.T (`ScoringTensors.columns()`), so a
+chunk's temporary is [B, chunk, Rows] with the row sum over the
+contiguous last axis; the sums are exact (see score.py), so the layout
+does not change a bit. Each chunk's temporaries are freed before the
+next chunk: at S=48 one is 32 x 128 x 8192 f32 = 134 MB.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ambigram_tpu_torch.solver.score import ScoringTensors
+
+
+def _hinge_sum(st: ScoringTensors, hx: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
+    """sum_r max(v - ub, 0) + max(lb - v, 0) with v = hx[:, None, :] + D,
+    for hx [B, Rows] and column deltas D [chunk, Rows] -> [B, chunk]."""
+    v = hx[:, None, :] + D[None, :, :]
+    under = st.lb - v
+    v.sub_(st.ub).clamp_(min=0.0)
+    under.clamp_(min=0.0)
+    v.add_(under)
+    del under
+    return v.sum(dim=-1)
+
+
+def _first_min(s: torch.Tensor):
+    """(value, index) of each row's first minimum."""
+    idx = torch.argmin(s, dim=1)
+    return s.gather(1, idx[:, None])[:, 0], idx
+
+
+def sweep_delta(
+    st: ScoringTensors,
+    X: torch.Tensor,
+    hx: torch.Tensor,
+    scores: torch.Tensor,
+    chunk: int = 128,
+):
+    """Best single-variable +-1 move per member. Returns
+    (X', hx', scores', improved_any) with improved_any a 0-d bool
+    tensor."""
+    B, Vp = X.shape
+    HT = st.columns()
+    best_score = scores
+    best_var = torch.zeros(B, dtype=torch.int64, device=X.device)
+    best_sign = torch.zeros(B, dtype=X.dtype, device=X.device)
+    for c0 in range(0, (Vp // chunk) * chunk, chunk):
+        Hc = HT[c0 : c0 + chunk]  # [chunk, Rows]
+        s_plus = _hinge_sum(st, hx, Hc)
+        s_minus = _hinge_sum(st, hx, -Hc)
+        # moves that clip back to X score exactly the current score
+        xv = X[:, c0 : c0 + chunk]
+        ub_v = st.x_ub[c0 : c0 + chunk][None, :]
+        s_plus = torch.where(xv + 1.0 > ub_v, scores[:, None], s_plus)
+        s_minus = torch.where(xv - 1.0 < 0.0, scores[:, None], s_minus)
+        val, idx = _first_min(torch.cat([s_plus, s_minus], dim=1))
+        var = c0 + idx % chunk
+        sign = torch.where(idx < chunk, 1.0, -1.0)
+        better = val < best_score
+        best_score = torch.where(better, val, best_score)
+        best_var = torch.where(better, var, best_var)
+        best_sign = torch.where(better, sign, best_sign)
+    improved = best_score < scores - 1e-6
+    delta = F.one_hot(best_var, Vp).to(X.dtype) * best_sign[:, None]
+    X_new = torch.minimum(torch.clamp(X + delta, min=0.0), st.x_ub)
+    X_out = torch.where(improved[:, None], X_new, X)
+    col = HT[best_var]  # [B, Rows] = H[:, best_var].T
+    hx_out = torch.where(improved[:, None], hx + best_sign[:, None] * col, hx)
+    s_out = torch.where(improved, best_score, scores)
+    return X_out, hx_out, s_out, improved.any()
+
+
+def sweep_moves(
+    st: ScoringTensors,
+    X: torch.Tensor,
+    hx: torch.Tensor,
+    scores: torch.Tensor,
+    mv_minus: torch.Tensor,
+    mv_plus: torch.Tensor,
+    chunk: int = 128,
+):
+    """Paired-move sweep: move m transfers one unit from variable
+    mv_minus[m] to mv_plus[m] (endpoint slides, loop<->pattern
+    transfers), scored via the column delta H[:, plus] - H[:, minus]."""
+    B, Vp = X.shape
+    HT = st.columns()
+    M = mv_minus.shape[0]
+    best_score = scores
+    best_move = torch.zeros(B, dtype=torch.int64, device=X.device)
+    for c0 in range(0, (M // chunk) * chunk, chunk):
+        mm = mv_minus[c0 : c0 + chunk]
+        mp = mv_plus[c0 : c0 + chunk]
+        s = _hinge_sum(st, hx, HT[mp] - HT[mm])
+        valid = (X[:, mm] >= 1.0) & (X[:, mp] + 1.0 <= st.x_ub[mp][None, :])
+        s = torch.where(valid, s, scores[:, None])
+        val, idx = _first_min(s)
+        better = val < best_score
+        best_score = torch.where(better, val, best_score)
+        best_move = torch.where(better, c0 + idx, best_move)
+    improved = best_score < scores - 1e-6
+    bm_minus = mv_minus[best_move]
+    bm_plus = mv_plus[best_move]
+    delta = F.one_hot(bm_plus, Vp).to(X.dtype) - F.one_hot(bm_minus, Vp).to(X.dtype)
+    X_out = torch.where(improved[:, None], X + delta, X)
+    col = HT[bm_plus] - HT[bm_minus]
+    hx_out = torch.where(improved[:, None], hx + col, hx)
+    s_out = torch.where(improved, best_score, scores)
+    return X_out, hx_out, s_out, improved.any()
+
+
+def sweep_moves3(
+    st: ScoringTensors,
+    X: torch.Tensor,
+    hx: torch.Tensor,
+    scores: torch.Tensor,
+    mv_a: torch.Tensor,
+    mv_b: torch.Tensor,
+    mv_c: torch.Tensor,
+    mv_s: torch.Tensor,
+    mv_valid: torch.Tensor,
+    chunk: int = 128,
+):
+    """Triple-move sweep: move m applies x[a] -= s, x[b] += s, x[c] += s
+    with s in {+1, -1} (loop/pattern split and merge), scored via the
+    column delta s * (H[:, b] + H[:, c] - H[:, a]). `mv_valid` masks
+    padding entries."""
+    B, Vp = X.shape
+    HT = st.columns()
+    M = mv_a.shape[0]
+    best_score = scores
+    best_move = torch.zeros(B, dtype=torch.int64, device=X.device)
+    for c0 in range(0, (M // chunk) * chunk, chunk):
+        a = mv_a[c0 : c0 + chunk]
+        b = mv_b[c0 : c0 + chunk]
+        c = mv_c[c0 : c0 + chunk]
+        s_sign = mv_s[c0 : c0 + chunk]
+        Dc = (HT[b] + HT[c] - HT[a]) * s_sign[:, None]
+        s = _hinge_sum(st, hx, Dc)
+        del Dc
+        pos = s_sign > 0
+        # a split needs x[a] >= 1 and headroom in both halves; b may
+        # equal c, and then the move needs 2 units of headroom
+        need_bc = torch.where(b == c, 2.0, 1.0)
+        ok_split = (
+            (X[:, a] >= 1.0)
+            & (X[:, b] + need_bc <= st.x_ub[b][None, :])
+            & (X[:, c] + 1.0 <= st.x_ub[c][None, :])
+        )
+        ok_merge = (
+            (X[:, b] >= need_bc)
+            & (X[:, c] >= 1.0)
+            & (X[:, a] + 1.0 <= st.x_ub[a][None, :])
+        )
+        valid = torch.where(pos[None, :], ok_split, ok_merge) & mv_valid[c0 : c0 + chunk][None, :]
+        s = torch.where(valid, s, scores[:, None])
+        val, idx = _first_min(s)
+        better = val < best_score
+        best_score = torch.where(better, val, best_score)
+        best_move = torch.where(better, c0 + idx, best_move)
+    improved = best_score < scores - 1e-6
+    ba = mv_a[best_move]
+    bb = mv_b[best_move]
+    bc = mv_c[best_move]
+    bs = mv_s[best_move]
+    delta = (
+        F.one_hot(bb, Vp).to(X.dtype)
+        + F.one_hot(bc, Vp).to(X.dtype)
+        - F.one_hot(ba, Vp).to(X.dtype)
+    ) * bs[:, None]
+    X_out = torch.where(improved[:, None], X + delta, X)
+    col = (HT[bb] + HT[bc] - HT[ba]) * bs[:, None]
+    hx_out = torch.where(improved[:, None], hx + col, hx)
+    s_out = torch.where(improved, best_score, scores)
+    return X_out, hx_out, s_out, improved.any()
