@@ -30,7 +30,9 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
+# one lock per kernel, so two kernels build concurrently (one nvcc each)
+_LOCKS: Dict[str, threading.Lock] = {}
+_LOCKS_GUARD = threading.Lock()
 # per kernel: {"seconds": build wall time (0.0 when the library was
 # already built), "log": nvcc's output (ptxas register/spill report)}
 BUILD_INFO: Dict[str, dict] = {}
@@ -49,7 +51,9 @@ def nvcc_path() -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The shared library of ``csrc/<name>.cu``, built on first use."""
-    with _LOCK:
+    with _LOCKS_GUARD:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib

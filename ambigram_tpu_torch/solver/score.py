@@ -14,9 +14,11 @@ fractional targets: their hinges round, and two sums of the same hinges
 in different orders may differ in the last bit (about 1e-7 relative).
 
 `score_rows` is the wrapper of K1, the hand-written CUDA kernel
-(csrc/score_rows.cu) that replaces the Pallas `_score_kernel`. On a CUDA
-tensor it launches the kernel or raises; its plain PyTorch version,
-`score_rows_plain`, serves CPU tensors only.
+(csrc/score_rows.cu) that replaces the Pallas `_score_kernel`;
+`chained_score` is the wrapper of K2 (csrc/chained_score.cu), which
+replaces the Pallas `_chained_kernel` of the benchmark chain. On a CUDA
+tensor each launches its kernel or raises; its plain PyTorch version
+(`score_rows_plain`, `chained_score_plain`) serves CPU tensors only.
 """
 
 from __future__ import annotations
@@ -68,6 +70,8 @@ class ScoringTensors:
     # H.T made contiguous, built on first use by `columns()`: the sweeps
     # gather columns of H, which are rows of HT
     _HT: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
+    # max |H8|, read on first use by `int8_hx_exact()`
+    _h8_absmax: Optional[int] = dataclasses.field(default=None, repr=False)
 
     @property
     def use_int8(self) -> bool:
@@ -75,15 +79,30 @@ class ScoringTensors:
         the search clips to x_ub, so that bound decides."""
         return self.int8_ok and self.x_ub_max <= 127.0
 
+    def int8_hx_exact(self) -> bool:
+        """Whether every partial sum of an int8 row value x.H8[r], for
+        candidates in [0, 127], stays below 2^24: then an f32 product of
+        the int8 values is exact and equals the int32 one. Builders emit
+        |H8| <= 2, so this holds for any Vp below about 33k."""
+        if self._h8_absmax is None:
+            h = self.H8.to(torch.int16).abs()
+            self._h8_absmax = int(h.max()) if h.numel() else 0
+        return self._h8_absmax * 127 * self.H8.shape[-1] < 2**24
+
     def columns(self) -> torch.Tensor:
-        """H.T as a contiguous [Vp, Rows] tensor (cached)."""
+        """H.T as a contiguous [..., Vp, Rows] tensor (cached)."""
         if self._HT is None:
-            self._HT = self.H.t().contiguous()
+            self._HT = self.H.transpose(-1, -2).contiguous()
         return self._HT
 
     def to(self, device) -> "ScoringTensors":
         moved = {name: getattr(self, name).to(device) for name in _LEAVES}
         return dataclasses.replace(self, _HT=None, **moved)
+
+    def case(self, g: int) -> "ScoringTensors":
+        """Case g of a case-stacked set (`parallel.mesh.stack_cases`:
+        every leaf has a leading case axis) as a single-case set."""
+        return dataclasses.replace(self, _HT=None, **{name: getattr(self, name)[g] for name in _LEAVES})
 
     @classmethod
     def from_numpy(
@@ -118,8 +137,11 @@ def _expand_f32(H8, lb_raw, ub_raw, w):
     and entries are small integers), bounds = w * raw bounds clamped to
     +-BIG (w * +-BIG overflows f32 to +-inf on PENALTY rows; the clamp
     restores the finite convention). Padding rows (w == 0) keep open
-    bounds, so any hx lands inside [-BIG, BIG] with zero hinge."""
-    H = w[:, None] * H8.to(torch.float32)
+    bounds, so any hx lands inside [-BIG, BIG] with zero hinge.
+
+    Leading case axes broadcast through, so one call also expands a
+    case-stacked set (the JAX package's vmapped `_expand_f32_cases`)."""
+    H = w[..., None] * H8.to(torch.float32)
     lb = torch.clamp(w * lb_raw, min=-_BIG)
     ub = torch.clamp(w * ub_raw, max=_BIG)
     pad = w == 0.0
@@ -128,16 +150,26 @@ def _expand_f32(H8, lb_raw, ub_raw, w):
     return H, lb, ub
 
 
-def scoring_tensors(prog: BfbProgram, device="cpu") -> ScoringTensors:
+def scoring_tensors(
+    prog: BfbProgram,
+    device="cpu",
+    pad_vars: Optional[int] = None,
+    need_f32: bool = True,
+) -> ScoringTensors:
     """Assemble the scoring tensors of `prog` on `device`.
 
     The int8 representation is built on the host first. When it is exact
     (int8_ok: every current builder emits {+-1, +-2, 0.5*2} entries) only
     it crosses to the device and the f32 representation is expanded
     there (`_expand_f32`); otherwise the f32 representation is assembled
-    on the host."""
+    on the host.
+
+    `pad_vars` pads the variables to that width instead of the next
+    multiple of 128. need_f32=False skips the f32 representation when
+    the int8 one is exact and leaves 1-row f32 placeholders: for
+    `stack_cases`, which expands the stacked int8 set itself."""
     V = prog.num_vars
-    Vp = _round_up(max(V, 128), 128)
+    Vp = pad_vars if pad_vars is not None else _round_up(max(V, 128), 128)
     # residual rows: [seg | fbi | coupling]
     R0 = prog.A_seg.shape[0] + prog.A_fbi.shape[0]
     P = prog.num_coupling
@@ -189,7 +221,10 @@ def scoring_tensors(prog: BfbProgram, device="cpu") -> ScoringTensors:
         return torch.as_tensor(a).to(device)
 
     H8t, lbr, ubr, wt = dev(H8), dev(lb_raw), dev(ub_raw), dev(w)
-    if int8_ok:
+    if int8_ok and not need_f32:
+        H = dev(np.zeros((1, Vp), dtype=np.float32))
+        lb, ub = dev(np.zeros(1, dtype=np.float32)), dev(np.zeros(1, dtype=np.float32))
+    elif int8_ok:
         H, lb, ub = _expand_f32(H8t, lbr, ubr, wt)
     else:
         # host f32 assembly (fractional-coefficient programs)
@@ -249,29 +284,42 @@ def score_batch(st: ScoringTensors, x: torch.Tensor) -> torch.Tensor:
     [0, x_ub]): residual + PENALTY * violation, shape [...].
 
     On the int8 representation when the program and candidate box permit
-    (an exact integer product with an int32 accumulator, weights after
-    the hinge), otherwise on the f32 one; both give the same scores.
-    The int32 product runs on CPU tensors only: torch has no integer
-    matmul on CUDA, and the device path scores through `score_rows`."""
+    (weights after the hinge), otherwise on the f32 one; both give the
+    same scores. The int8 row values are one f32 product of the
+    candidates, truncated as the int8 cast truncates them, with H8 cast
+    to f32: every product and partial sum is an integer below 2^24
+    (`int8_hx_exact`, checked), so it equals the int32-accumulated
+    product bitwise, on any device (torch has no integer matmul on
+    CUDA). The weighted hinge terms (f32, as in the JAX package) are
+    summed in f64 and the sum rounded once to f32: for integer targets
+    the f64 sum is exact, so the score does not depend on the order of
+    the sum even above 2^24, where f32 sums in different orders differ
+    (K2 computes the same value). Below 2^24 it equals any f32 sum."""
     if st.use_int8:
-        hx = torch.matmul(
-            x.to(torch.int8).to(torch.int32), st.H8.to(torch.int32).t()
-        ).to(torch.float32)
+        if not st.int8_hx_exact():
+            raise ValueError("int8 row values can reach 2^24: an f32 product would round")
+        hx = matmul_f32(torch.trunc(x), st.H8.to(torch.float32).t())
         over = torch.clamp(hx - st.ub_raw, min=0.0)
         under = torch.clamp(st.lb_raw - hx, min=0.0)
-        return torch.sum(st.w * (over + under), dim=-1)
+        return torch.sum(st.w * (over + under), dim=-1, dtype=torch.float64).to(torch.float32)
     return score_from_hx(st, matmul_f32(x, st.H.t()))
 
 
 def score_rows_plain(
     st: ScoringTensors, X: torch.Tensor, want_hx: bool = False
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """K1's plain PyTorch version: (scores [B], hx [B, Rows] or None)."""
+    """K1's plain PyTorch version: (scores [B], hx [B, Rows] or None).
+    With a leading case axis (a `stack_cases` set, X [G, B, Vp]) it is
+    the loop over the cases: ([G, B], [G, B, Rows] or None)."""
+    if X.dim() == 3:
+        outs = [score_rows_plain(st.case(g), X[g], want_hx) for g in range(X.shape[0])]
+        scores = torch.stack([s for s, _ in outs])
+        return scores, (torch.stack([h for _, h in outs]) if want_hx else None)
     hx = matmul_f32(X, st.H.t())
     return score_from_hx(st, hx), (hx if want_hx else None)
 
 
-_K1_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_K1_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _k1_library() -> ctypes.CDLL:
@@ -294,18 +342,23 @@ def score_rows(
     """Score candidates X [B, Vp] against all rows: (scores [B], hx
     [B, Rows] or None). The function of the Pallas `_score_kernel`
     (ambigram_tpu/solver/score.py), plus the hx it forms on the way.
+    A case-stacked set (`stack_cases`: H [G, Rows, Vp], lb/ub [G, Rows])
+    takes X [G, B, Vp] and scores every case in one launch: ([G, B],
+    [G, B, Rows] or None), bitwise equal to G single-case calls.
 
     CUDA tensors launch K1 (csrc/score_rows.cu) and raise on any fault;
     CPU tensors take the plain version. `score_rows.launches` counts the
     kernel's launches."""
     H, lb, ub = st.H, st.lb, st.ub
-    if X.dim() != 2 or H.dim() != 2 or X.shape[1] != H.shape[1]:
+    if X.dim() not in (2, 3) or H.dim() != X.dim() or X.shape[-1] != H.shape[-1] or (
+        X.dim() == 3 and X.shape[0] != H.shape[0]
+    ):
         raise ValueError("X %s does not match H %s" % (tuple(X.shape), tuple(H.shape)))
     tensors = (H, lb, ub, X)
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("score_rows takes float32 tensors")
-    if lb.shape != (H.shape[0],) or ub.shape != (H.shape[0],):
-        raise ValueError("lb/ub must be [Rows]")
+    if lb.shape != H.shape[:-1] or ub.shape != H.shape[:-1]:
+        raise ValueError("lb/ub must be [Rows] ([G, Rows] with a case axis)")
     if any(t.device != X.device for t in tensors):
         raise ValueError("H, lb, ub and X must be on one device")
     if X.device.type == "cpu":
@@ -315,14 +368,16 @@ def score_rows(
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("score_rows needs contiguous tensors")
     lib = _k1_library()
-    B, Vp = X.shape
-    rows = H.shape[0]
-    scores = torch.empty(B, dtype=torch.float32, device=X.device)
-    hx = torch.empty((B, rows), dtype=torch.float32, device=X.device) if want_hx else None
-    if B == 0:
+    cases = X.shape[0] if X.dim() == 3 else 1
+    B, Vp = X.shape[-2:]
+    rows = H.shape[-2]
+    lead = X.shape[:-1]
+    scores = torch.empty(lead, dtype=torch.float32, device=X.device)
+    hx = torch.empty(lead + (rows,), dtype=torch.float32, device=X.device) if want_hx else None
+    if B == 0 or cases == 0:
         return scores, hx
     partial = torch.empty(
-        (lib.score_rows_num_tiles(rows), B), dtype=torch.float32, device=X.device
+        (cases, lib.score_rows_num_tiles(rows), B), dtype=torch.float32, device=X.device
     )
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
@@ -334,6 +389,7 @@ def score_rows(
             hx.data_ptr() if hx is not None else None,
             partial.data_ptr(),
             scores.data_ptr(),
+            cases,
             B,
             rows,
             Vp,
@@ -349,3 +405,142 @@ def score_rows(
 
 
 score_rows.launches = 0
+
+
+# ------------------------------------------------- the benchmark chain (K2)
+
+_HEAD = 128  # lanes the chain mutates
+
+
+def chained_mutate(X: torch.Tensor, s: torch.Tensor, i: int, x_ub: torch.Tensor) -> torch.Tensor:
+    """The benchmark chain's data-dependent mutation (the JAX package's
+    `chained_mutate`): lane j < 128 of candidate b gains 1 where
+    ((s[b] + j) + i) mod 7 < 1, then is clipped to x_ub[j] (no lower
+    clip). The order of the f32 adds is the JAX one: at s ~ 5e7 each
+    add rounds, and another order would flip bumps. The operand is
+    never negative, so fmod is the floor modulo of `%`."""
+    lane = torch.arange(_HEAD, dtype=torch.float32, device=X.device)
+    t = (s[:, None] + lane) + float(i)
+    bump = (torch.fmod(t, 7.0) < 1.0).to(X.dtype)
+    head = torch.minimum(X[:, :_HEAD] + bump, x_ub[:_HEAD])
+    return torch.cat([head, X[:, _HEAD:]], dim=1)
+
+
+def chained_score_plain(
+    st: ScoringTensors, X: torch.Tensor, iters: int, want_x: bool = False
+):
+    """K2's plain PyTorch version: the loop of the JAX bench's `chained`
+    (`iters` rounds of int8 `score_batch`, `chained_mutate`, acc += sum
+    of the scores). Returns the f32 checksum as a 0-d tensor, and the
+    final candidates too when `want_x`."""
+    acc = torch.zeros((), dtype=torch.float32, device=X.device)
+    for i in range(iters):
+        s = score_batch(st, X)
+        X = chained_mutate(X, s, i, st.x_ub)
+        acc = acc + torch.sum(s)
+    return (acc, X) if want_x else acc
+
+
+_K2_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def _k2_library() -> ctypes.CDLL:
+    from ambigram_tpu_torch import kernels
+
+    lib = kernels.load("chained_score")
+    if lib.chained_score_launch.argtypes is None:
+        lib.chained_score_launch.argtypes = _K2_ARGTYPES
+        lib.chained_score_launch.restype = ctypes.c_int
+        lib.chained_score_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.chained_score_smem_bytes.restype = ctypes.c_int
+        lib.chained_score_error_string.argtypes = [ctypes.c_int]
+        lib.chained_score_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+K2_BLOCK_B = (32, 64)  # candidates per CTA the kernel is built for
+K2_MAX_SMEM = 232448  # shared memory one H100 block may use
+
+
+def chained_score(
+    st: ScoringTensors, X: torch.Tensor, iters: int, block_b: int = 64, want_x: bool = False
+):
+    """The benchmark chain on candidates X [B, Vp] for `iters` rounds:
+    the function of the Pallas `_chained_kernel` (ambigram_tpu/solver/
+    score.py). Returns the f32 checksum (0-d), and the final candidates
+    too when `want_x`.
+
+    CUDA tensors launch K2 (csrc/chained_score.cu): one CTA per
+    `block_b` candidates, so B must be a multiple of it; Vp a multiple
+    of 128 and Rows of 256, as `scoring_tensors` pads them. CPU tensors
+    take the plain version. `chained_score.launches` counts the kernel's
+    launches."""
+    if not st.use_int8:
+        raise ValueError("the chain runs on the int8 representation (use_int8 is False)")
+    if X.dim() != 2 or X.shape[1] != st.H8.shape[1] or X.dtype != torch.float32:
+        raise ValueError("X must be float32 [B, %d], got %s %s" % (st.H8.shape[1], X.dtype, tuple(X.shape)))
+    B, Vp = X.shape
+    rows = st.H8.shape[0]
+    if block_b not in K2_BLOCK_B:
+        raise ValueError("block_b must be one of %s" % (K2_BLOCK_B,))
+    if B % block_b:
+        raise ValueError(
+            "batch %d must be divisible by block_b %d (the grid would drop the remainder)" % (B, block_b)
+        )
+    if Vp % 128 or rows % 256:
+        raise ValueError("Vp %d must be a multiple of 128 and Rows %d of 256" % (Vp, rows))
+    if not st.int8_hx_exact():
+        raise ValueError("int8 row values can reach 2^24: their f32 conversion would round")
+    leaves = (st.H8, st.lb_raw, st.ub_raw, st.w, st.x_ub)
+    if any(t.device != X.device for t in leaves):
+        raise ValueError("the scoring tensors and X must be on one device")
+    if X.device.type == "cpu":
+        return chained_score_plain(st, X, iters, want_x)
+    if X.device.type != "cuda":
+        raise ValueError("chained_score runs on cpu or cuda, not %s" % X.device)
+    if not X.is_contiguous() or X.data_ptr() % 16:
+        raise ValueError("chained_score needs a contiguous, 16-byte aligned X")
+    lib = _k2_library()
+    smem = lib.chained_score_smem_bytes(block_b, Vp)
+    if smem > K2_MAX_SMEM:
+        raise ValueError(
+            "block_b %d at Vp %d needs %d bytes of shared memory (max %d)" % (block_b, Vp, smem, K2_MAX_SMEM)
+        )
+    # H8 as 4 int8 per int32 word (byte j of word k is column 4k + j),
+    # transposed to [Vp/4, Rows] so a tile of rows is one contiguous load
+    HTw = st.H8.contiguous().view(torch.int32).t().contiguous()
+    lb, ub, w, x_ub = (t.contiguous() for t in (st.lb_raw, st.ub_raw, st.w, st.x_ub))
+    X_out = torch.empty_like(X) if want_x else None
+    blocks = torch.empty(B // block_b, dtype=torch.float32, device=X.device)
+    checksum = torch.zeros((), dtype=torch.float32, device=X.device)
+    if B == 0:
+        return (checksum, X_out) if want_x else checksum
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        err = lib.chained_score_launch(
+            HTw.data_ptr(),
+            lb.data_ptr(),
+            ub.data_ptr(),
+            w.data_ptr(),
+            x_ub.data_ptr(),
+            X.data_ptr(),
+            X_out.data_ptr() if X_out is not None else None,
+            blocks.data_ptr(),
+            checksum.data_ptr(),
+            B,
+            rows,
+            Vp,
+            iters,
+            block_b,
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            "chained_score kernel launch failed: %s (cudaError %d)"
+            % (lib.chained_score_error_string(err).decode(), err)
+        )
+    chained_score.launches += 1
+    return (checksum, X_out) if want_x else checksum
+
+
+chained_score.launches = 0

@@ -6,7 +6,8 @@ It runs these phases in order; a failure in any of them exits non-zero
 and prints no result line:
 
 1. the card: nvidia-smi's name and power limit; a CUDA device must exist;
-2. build every kernel of the port's main path from csrc/ (nvcc, sm_90a);
+2. build every kernel of the port's paths from csrc/ (nvcc, sm_90a), one
+   nvcc per source, all started together;
 3. K1 (`score_rows`, csrc/score_rows.cu) against its plain PyTorch
    version on the tensors of the S=48 seed-0 case, at B=32 (the search's
    population) and B=1000 (ragged): hx bitwise equal, scores bitwise
@@ -14,13 +15,34 @@ and prints no result line:
    every f32 sum is exact) and within rtol 1e-5 on the noisy case
    (fractional targets: the f32 row sum rounds, and the two versions
    sum in different orders); then the times of both;
-4. the slice: the S=48 seed-0 case of the repo's 4xS48 suite through
-   `python -m ambigram_tpu_torch.cli --op bfb --solver auto` on cuda,
-   in process. Its program has more than 2048 variables, so auto sends
-   it to the device search; the run must go through K1, print a path,
-   and reach a feasible solution with eps <= 8.2245 (+1e-4), the value
-   the host MILP and the JAX auto path reach on this case;
-5. a JSON line describing the kernels, then the result line
+4. the single-case slice: the S=48 seed-0 case of the repo's 4xS48 suite
+   through `python -m ambigram_tpu_torch.cli --op bfb --solver auto` on
+   cuda, in process. Its program has more than 2048 variables, so auto
+   sends it to the device search; the run must go through K1, print a
+   path, and reach a feasible solution with eps <= 8.2245 (+1e-4), the
+   value the host MILP and the JAX auto path reach on this case;
+5. K2 (`chained_score`, csrc/chained_score.cu) against its plain version:
+   on a small random int8 program (B=256, 5 rounds, every sum exact) the
+   final candidates bitwise equal and the checksum within rel 1e-6; on
+   the bench program at full width (3840 x 1152 int8, B=4096, 20
+   rounds) the final candidates bitwise equal (both round each exact
+   score once) and the checksum within rel 1e-5; the same at the bench's
+   own batch (B=262144, 3 rounds), where the checksum adds 4096 block
+   sums; a batch that does not divide into blocks must raise;
+6. the bench's chain leg (`ambigram_tpu_torch.bench.bench_device`) at
+   B=32768 and 50 rounds, which must launch K2; then the times of K2
+   and its plain version at that shape (CUDA events);
+7. K1 with a case axis, on a stacked pair of S=48 suite cases and on
+   the two groups the batch path below stacks: hx bitwise equal to the
+   plain per-case loop and the scores within rtol 1e-5 of it (noisy
+   cases), and both bitwise equal to one single-case call per case;
+8. the batch path: four cases of the bench's batch recipe (seeds
+   200-203, S=32/48 alternating, noise 0.05; two same-shape groups of
+   two) through `python -m ambigram_tpu_torch.cli --op bfb --manifest
+   --solver device` on cuda, in process: every case prints a path with
+   hard violation 0, the search runs as two case-stacked groups, and
+   batched K1 launches at least twice;
+9. a JSON line describing the kernels, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -40,6 +62,11 @@ SUITE = dict(n_segments=48, rounds=5, coverage=30.0, mode="process")
 SEED = 0
 EPS_BAR = 8.2245  # host MILP (30 s budget) and the JAX auto path, S=48 seed 0
 K1_RTOL = 1e-5
+K2_SMALL_RTOL = 1e-6  # exact per-candidate sums: only the checksum's order differs
+K2_BENCH_RTOL = 1e-5  # the bar bench.py holds its chain layouts to
+K2_TIMED = dict(B=32768, iters=50)
+K2_HEADLINE = dict(B=262144, iters=3)  # the bench's batch, a few rounds
+DEVICE = "cuda"
 
 
 def log(*parts) -> None:
@@ -82,10 +109,10 @@ def population(prog, x_ub, n: int, seed: int):
     return np.clip(X, 0.0, x_ub).astype(np.float32)
 
 
-def cuda_ms(fn, iters: int = 20) -> float:
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -107,7 +134,7 @@ def check_k1(progs: dict) -> dict:
     worst = 0.0
     timing = {}
     for label, prog in progs.items():
-        st = scoring_tensors(prog, "cuda")
+        st = scoring_tensors(prog, DEVICE)
         x_ub = st.x_ub.cpu().numpy()
         rng = np.random.default_rng(1)
         dense = np.zeros((32, len(x_ub)), dtype=np.float32)
@@ -117,7 +144,7 @@ def check_k1(progs: dict) -> dict:
             for B in (32, 1000):
                 if B > len(X_all):
                     continue
-                X = torch.as_tensor(X_all[:B]).cuda()
+                X = torch.as_tensor(X_all[:B]).to(DEVICE)
                 s_k, hx_k = score_rows(st, X, want_hx=True)
                 s_p, hx_p = score_rows_plain(st, X, want_hx=True)
                 torch.cuda.synchronize()
@@ -138,7 +165,7 @@ def check_k1(progs: dict) -> dict:
                        err, float(s_p.max()))
                 )
         for B in (32, 1000):
-            X = torch.as_tensor(sets["population"][:B]).cuda()
+            X = torch.as_tensor(sets["population"][:B]).to(DEVICE)
             plain_a = cuda_ms(lambda: score_rows_plain(st, X, want_hx=True))
             kern_a = cuda_ms(lambda: score_rows(st, X, want_hx=True))
             kern_b = cuda_ms(lambda: score_rows(st, X, want_hx=True))
@@ -155,6 +182,205 @@ def check_k1(progs: dict) -> dict:
     return {"max_abs_err": worst, "ms": kern, "plain_ms": plain}
 
 
+def random_int8_prog(seed: int = 2, n: int = 10):
+    """The small random program of tests/test_solver.py's chain test:
+    loops stacked on a CN profile plus 0/1 noise, x_ub capped at 127."""
+    import numpy as np
+
+    from ambigram_tpu.engine.enumerate import enumerate_pairs
+    from ambigram_tpu.engine.ilp import build_bfb_program
+
+    rng = np.random.default_rng(seed)
+    pairs = enumerate_pairs(1, n)
+    T = len(pairs)
+    x = np.zeros(2 * T)
+    for _ in range(rng.integers(2, 5)):
+        x[T + rng.integers(0, T)] += rng.integers(1, 3)
+    seg_cn, fbi_cn = np.zeros(n), np.zeros(n)
+    for t, (i, j) in enumerate(pairs):
+        if x[T + t] > 0:
+            seg_cn[i - 1 : j] += 2 * x[T + t]
+            fbi_cn[i - 1] += x[T + t]
+            fbi_cn[j - 1] += x[T + t]
+    seg_cn += rng.integers(0, 2, size=n)
+    prog = build_bfb_program(1, n, seg_cn, fbi_cn, seg_cn.sum(), 1)
+    prog.x_ub = np.minimum(prog.x_ub, 127)
+    return prog, rng
+
+
+def check_k2() -> dict:
+    """K2 against its plain version, the bench's chain leg (which must
+    launch K2) and the times of both; returns the kernels-line numbers."""
+    import numpy as np
+    import torch
+
+    from ambigram_tpu_torch import bench
+    from ambigram_tpu_torch.solver.score import chained_score, chained_score_plain, scoring_tensors
+
+    prog, rng = random_int8_prog()
+    st = scoring_tensors(prog, DEVICE)
+    X = np.zeros((256, st.H8.shape[1]), dtype=np.float32)
+    X[:, : prog.num_vars] = rng.integers(0, 2, size=(256, prog.num_vars))
+    X = torch.as_tensor(X).to(DEVICE)
+    acc_p, x_p = chained_score_plain(st, X, 5, want_x=True)
+    for block_b in (64, 32):
+        acc_k, x_k = chained_score(st, X, 5, block_b=block_b, want_x=True)
+        torch.cuda.synchronize()
+        rel = abs(float(acc_k) / float(acc_p) - 1.0)
+        if not torch.equal(x_k, x_p) or rel > K2_SMALL_RTOL:
+            raise AssertionError("K2 small program, block_b %d: X equal %s, checksum rel %g"
+                                 % (block_b, torch.equal(x_k, x_p), rel))
+        log("k2 small V=%d rows=%d B=256 iters=5 block_b=%d: X bitwise equal, checksum %r vs plain %r (rel %.3g)"
+            % (prog.num_vars, st.H8.shape[0], block_b, float(acc_k), float(acc_p), rel))
+
+    prog, st, X_all = bench.build_workload(batch=K2_HEADLINE["B"], device=DEVICE)
+    bench_rel = 0.0
+    for B, iters in ((4096, 20), (K2_HEADLINE["B"], K2_HEADLINE["iters"])):
+        X = torch.as_tensor(X_all[:B]).to(DEVICE)
+        acc_p, x_p = chained_score_plain(st, X, iters, want_x=True)
+        acc_k, x_k = chained_score(st, X, iters, want_x=True)
+        torch.cuda.synchronize()
+        rel = abs(float(acc_k) / float(acc_p) - 1.0)
+        same_x = torch.equal(x_k, x_p)
+        log("k2 bench %dx%d B=%d iters=%d: X %s, checksum %r vs plain %r (rel %.3g)"
+            % (st.H8.shape[0], st.H8.shape[1], B, iters, "bitwise equal" if same_x else "DIFFERS",
+               float(acc_k), float(acc_p), rel))
+        if not same_x or rel > K2_BENCH_RTOL:
+            raise AssertionError("K2 disagrees with plain at the bench width, B=%d (rel %g)" % (B, rel))
+        bench_rel = max(bench_rel, rel)
+        del x_p, x_k
+    X = X[:4096]
+    try:
+        chained_score(st, X[:4000], 1)
+    except ValueError as e:
+        log("k2 B=4000: raised as it must (%s)" % e)
+    else:
+        raise AssertionError("K2 accepted a batch that does not divide into blocks")
+
+    del X
+    torch.cuda.empty_cache()
+    B, iters = K2_TIMED["B"], K2_TIMED["iters"]
+    X_host = X_all[:B]
+    chained_score.launches = 0
+    cps, checksum, kernel_path = bench.bench_device(st, X_host, iters=iters)
+    launches = chained_score.launches
+    log("k2 bench chain leg (%s) B=%d iters=%d: %.1f candidates/s, checksum %r, K2 launches %d"
+        % (kernel_path, B, iters, cps, checksum, launches))
+    if launches < 1:
+        raise AssertionError("the bench's chain leg never launched K2")
+    Xd = torch.as_tensor(X_host).to(DEVICE)
+    plain_a = cuda_ms(lambda: chained_score_plain(st, Xd, iters), iters=1, warmup=1)
+    kern_a = cuda_ms(lambda: chained_score(st, Xd, iters), iters=1, warmup=1)
+    kern_b = cuda_ms(lambda: chained_score(st, Xd, iters), iters=1, warmup=0)
+    plain_b = cuda_ms(lambda: chained_score_plain(st, Xd, iters), iters=1, warmup=0)
+    kern, plain = (kern_a + kern_b) / 2, (plain_a + plain_b) / 2
+    log("k2 time B=%d iters=%d: kernel %.3f ms (%.3f, %.3f) = %.1f candidates/s, plain %.3f ms (%.3f, %.3f) = %.1f candidates/s"
+        % (B, iters, kern, kern_a, kern_b, B * iters / kern * 1e3, plain, plain_a, plain_b, B * iters / plain * 1e3))
+    del Xd
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": bench_rel, "ms": kern, "plain_ms": plain}
+
+
+def check_k1_cases(label: str, progs) -> float:
+    """K1 with a case axis on a stacked group, at the search's
+    population (B=32): hx bitwise equal to the plain per-case loop and
+    the scores within K1_RTOL of it (noisy cases: fractional targets
+    round in another order), and both bitwise equal to one single-case
+    call per case. Returns the largest score difference from plain."""
+    import numpy as np
+    import torch
+
+    from ambigram_tpu_torch.parallel.mesh import stack_cases
+    from ambigram_tpu_torch.solver.score import score_rows, score_rows_plain
+
+    st = stack_cases(progs, DEVICE)
+    x_ub = st.x_ub.cpu().numpy()
+    X = torch.as_tensor(np.stack([population(p, x_ub[g], 32, seed=g) for g, p in enumerate(progs)])).to(DEVICE)
+    s_b, hx_b = score_rows(st, X, want_hx=True)
+    s_p, hx_p = score_rows_plain(st, X, want_hx=True)
+    torch.cuda.synchronize()
+    if not torch.equal(hx_b, hx_p):
+        raise AssertionError("batched K1 hx differs from plain (%s)" % label)
+    err = float((s_b - s_p).abs().max())
+    rel = float(((s_b - s_p).abs() / s_p.abs().clamp(min=1.0)).max())
+    if rel > K1_RTOL:
+        raise AssertionError("batched K1 scores off plain by rel %g (%s)" % (rel, label))
+    for g in range(len(progs)):
+        s_g, hx_g = score_rows(st.case(g), X[g].contiguous(), want_hx=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(s_g, s_b[g]) and torch.equal(hx_g, hx_b[g])):
+            raise AssertionError("batched K1 differs from the single-case call for case %d (%s)" % (g, label))
+    log("k1 cases %s G=%d B=32 rows=%d vp=%d: hx bitwise equal to plain, scores %s (max_abs_err %r), "
+        "both bitwise equal to %d single-case calls"
+        % (label, len(progs), st.H.shape[-2], st.H.shape[-1],
+           "bitwise equal" if torch.equal(s_b, s_p) else "rel %.3g" % rel, err, len(progs)))
+    return err
+
+
+def batch_groups(paths):
+    """The programs of the batch cases, grouped as `solve_device_batch`
+    groups them (by interval and variable count)."""
+    from ambigram_tpu.engine.pipeline import extract_programs
+
+    groups: dict = {}
+    for path in paths:
+        prog = extract_programs(path)[0]
+        groups.setdefault((prog.start, prog.end, prog.num_vars), []).append(prog)
+    return groups
+
+
+def run_batch(workdir: str, paths) -> dict:
+    """The batch path: four cases through the CLI's --manifest on cuda."""
+    import numpy as np
+    import torch
+
+    from ambigram_tpu.engine.pipeline import extract_programs
+    from ambigram_tpu.utils.profiling import GLOBAL
+    from ambigram_tpu_torch import bench, cli
+    from ambigram_tpu_torch.solver.score import score_rows
+
+    manifest = os.path.join(workdir, "batch.manifest")
+    with open(manifest, "w") as f:
+        f.write("".join(p + "\n" for p in paths))
+    argv = ["--op", "bfb", "--manifest", "--in_lh", manifest, "--solver", "device", "--device", DEVICE, "--no-ledgers"]
+    log("batch: python -m ambigram_tpu_torch.cli " + " ".join(argv))
+    GLOBAL.reset()
+    score_rows.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        results = cli.run(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = score_rows.launches
+    if not results or len(results) != len(paths):
+        raise AssertionError("the manifest run returned %r" % (results,))
+    lines = buf.getvalue().splitlines()
+    violations = bench.case_violations(paths, results)
+    for path, r in zip(paths, results):
+        prog = extract_programs(path)[0]
+        x = np.asarray(r.chromosomes[0].element_cn, dtype=np.float64)
+        log("batch case %s: V=%d eps %r, hard_violation %r, certified %s"
+            % (os.path.basename(path), prog.num_vars, float(prog.residual_objective(x)),
+               float(prog.hard_violation(x)), r.chromosomes[0].certified))
+        if not r.path_strings or not all(p and p in lines for p in r.path_strings):
+            raise AssertionError("no path printed for %s" % path)
+    log("batch: 4 cases, wall %.3f s, %.2f cases/min, K1 launches %d" % (wall, 4 * 60.0 / wall, launches))
+    for name in ("solve.tensors", "solve.lp_bound", "score", "solve.lns", "solve.exact", "replay"):
+        st = GLOBAL.phases.get(name)
+        log("phase %-15s %.3f s x%d" % (name, st.seconds if st else 0.0, st.calls if st else 0))
+    for name in sorted(GLOBAL.counters):
+        log("counter %-22s %r" % (name, GLOBAL.counters[name]))
+    if max(violations) != 0.0:
+        raise AssertionError("a batch solution violates hard rows: %r" % violations)
+    calls = GLOBAL.counters.get("solve.device_calls", 0.0)
+    if calls != 2:
+        raise AssertionError("expected two case-stacked searches, got %r device calls" % calls)
+    if launches < 2:
+        raise AssertionError("batched K1 launched %d times, expected >= 2" % launches)
+    return {"launches": launches, "wall": wall}
+
+
 def run_slice(lh: str) -> dict:
     import numpy as np
     import torch
@@ -167,7 +393,7 @@ def run_slice(lh: str) -> dict:
     prog = extract_programs(lh)[0]
     if prog.num_vars <= AUTO_EXACT_FIRST_MAX_VARS:
         raise AssertionError("case has %d variables: auto would not reach the device" % prog.num_vars)
-    argv = ["--op", "bfb", "--in_lh", lh, "--solver", "auto", "--device", "cuda", "--no-ledgers"]
+    argv = ["--op", "bfb", "--in_lh", lh, "--solver", "auto", "--device", DEVICE, "--no-ledgers"]
     log("slice: python -m ambigram_tpu_torch.cli " + " ".join(argv))
     GLOBAL.reset()
     score_rows.launches = 0
@@ -210,6 +436,25 @@ def run_slice(lh: str) -> dict:
     return {"launches": launches, "wall": wall}
 
 
+def build_kernels() -> None:
+    """Build every kernel of the port at once (one nvcc per source)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ambigram_tpu_torch import kernels
+    from ambigram_tpu_torch.solver.score import _k1_library, _k2_library
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for fut in [pool.submit(_k1_library), pool.submit(_k2_library)]:
+            fut.result()
+    log("build: %.2f s for both kernels" % (time.perf_counter() - t0))
+    for name in ("score_rows", "chained_score"):
+        info = kernels.BUILD_INFO[name]
+        log("build: %s %.2f s in nvcc" % (name, info["seconds"]))
+        if info["log"]:
+            log(info["log"])
+
+
 def main() -> int:
     import torch
 
@@ -218,15 +463,7 @@ def main() -> int:
         return 1
     log(card_line())
     log("torch %s, cuda %s, python %s" % (torch.__version__, torch.version.cuda, sys.version.split()[0]))
-
-    from ambigram_tpu_torch import kernels
-    from ambigram_tpu_torch.solver.score import _k1_library
-
-    t0 = time.perf_counter()
-    _k1_library()
-    log("build: score_rows %.2f s (%.2f s in nvcc)" % (time.perf_counter() - t0, kernels.BUILD_INFO["score_rows"]["seconds"]))
-    if kernels.BUILD_INFO["score_rows"]["log"]:
-        log(kernels.BUILD_INFO["score_rows"]["log"])
+    build_kernels()
 
     from ambigram_tpu.engine.pipeline import extract_programs
 
@@ -234,8 +471,21 @@ def main() -> int:
     try:
         lh = simulate_case(workdir, noise=0.05)
         lh_exact = simulate_case(workdir, noise=0.0)
-        k1 = check_k1({"noise0.05": extract_programs(lh)[0], "noise0": extract_programs(lh_exact)[0]})
+        prog = extract_programs(lh)[0]
+        k1 = check_k1({"noise0.05": prog, "noise0": extract_programs(lh_exact)[0]})
         sl = run_slice(lh)
+        k2 = check_k2()
+        from ambigram_tpu.scripts.simulate import simulate_bfb_case, write_case
+
+        case1 = simulate_bfb_case(seed=1, noise=0.05, **SUITE)
+        prog1 = extract_programs(write_case(case1, os.path.join(workdir, "s48_seed1"))["lh"])[0]
+        k1_err = [check_k1_cases("s48 seeds 0,1", [prog, prog1])]
+        from ambigram_tpu_torch import bench
+
+        paths = bench.batch_case_paths(workdir, n_cases=4)
+        for key, group in batch_groups(paths).items():
+            k1_err.append(check_k1_cases("batch group V=%d" % key[2], group))
+        batch = run_batch(workdir, paths)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -246,11 +496,21 @@ def main() -> int:
                 "route": "cuda",
                 "source": "ambigram_tpu_torch/csrc/score_rows.cu",
                 "replaces": "ambigram_tpu/solver/score.py:435",
-                "launches": sl["launches"],
-                "max_abs_err": k1["max_abs_err"],
+                "launches": sl["launches"] + batch["launches"],
+                "max_abs_err": max([k1["max_abs_err"]] + k1_err),
                 "ms": k1["ms"],
                 "plain_ms": k1["plain_ms"],
-            }
+            },
+            {
+                "name": "chained_score",
+                "route": "cuda",
+                "source": "ambigram_tpu_torch/csrc/chained_score.cu",
+                "replaces": "ambigram_tpu/solver/score.py:336",
+                "launches": k2["launches"],
+                "max_abs_err": k2["max_abs_err"],
+                "ms": k2["ms"],
+                "plain_ms": k2["plain_ms"],
+            },
         ]
     }
     print(json.dumps(kernels_line))

@@ -97,11 +97,15 @@ def test_slice_matches_reference_on_simulated_cases(seed, tmp_path, small_search
     [
         ["--op", "sc_bfb", "--in_lh", EGFR6],
         ["--op", "check", "--in_lh", EGFR6],
-        ["--op", "bfb", "--manifest", "--in_lh", EGFR6],
+        ["--op", "bfb", "--manifest", "--in_lh", "SC_MANIFEST"],
     ],
     ids=["sc_bfb", "check", "manifest"],
 )
-def test_cli_unported_ops_exit_nonzero(argv, capsys):
+def test_cli_unported_ops_exit_nonzero(argv, capsys, tmp_path):
+    """Bulk manifests are ported; single-cell (sc:) manifest lines are not."""
+    manifest = tmp_path / "sc.manifest"
+    manifest.write_text("sc:%s,%s edges=1:2\n" % (EGFR6, EGFR6))
+    argv = [str(manifest) if a == "SC_MANIFEST" else a for a in argv]
     assert cli.main(argv + ["--device", "cpu"]) != 0
     assert "not yet ported" in capsys.readouterr().err
 

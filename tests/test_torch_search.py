@@ -103,25 +103,26 @@ def test_descend_loop_matches_jax(name):
 
 
 def test_search_impl_rescoring_uses_score_rows(monkeypatch):
-    """Both full rescorings (the start and each kick) go through K1's
-    wrapper: 1 + rounds calls."""
+    """The search of one case (a group of one): both full rescorings
+    (the start and each kick) go through K1's wrapper, 1 + rounds calls
+    on the whole [1, B, Vp] group."""
     calls = []
 
     def counting(st, X, want_hx=False):
-        calls.append(X.shape)
+        calls.append(tuple(X.shape))
         return score_rows(st, X, want_hx)
 
     monkeypatch.setattr(search, "score_rows", counting)
     prog = _egfr_prog()
-    from ambigram_tpu_torch.solver.score import scoring_tensors
+    from ambigram_tpu_torch.parallel.mesh import stack_cases
 
-    st = scoring_tensors(prog, "cpu")
-    X0 = torch.zeros((8, st.H.shape[1]))
-    _, best_s, _, _ = search.search_impl(
-        st, X0, torch.Generator().manual_seed(0), rounds=3, max_sweeps=16, patience=5
+    st = stack_cases([prog], "cpu")
+    X0 = torch.zeros((1, 8, st.H.shape[-1]))
+    _, best_s, _, _ = search.batch_search(
+        st, X0, [torch.Generator().manual_seed(0)], rounds=3, max_sweeps=16, patience=5
     )
-    assert len(calls) == 1 + 3
-    assert np.isfinite(best_s)
+    assert calls == [(1, 8, st.H.shape[-1])] * (1 + 3)
+    assert best_s.shape == (1,) and np.isfinite(float(best_s[0]))
 
 
 def test_solve_device_finds_exact_optimum_egfr6(small_search):
