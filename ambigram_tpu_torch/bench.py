@@ -44,13 +44,37 @@ PEAK_INT8_TOPS = 1979.0
 SUITE_MODES = ("0", "1", "kernel")
 
 
+def _demo_program(n_segments: int = 24):
+    """A representative mid-size fitting program built from a synthetic
+    BFB copy-number profile (no file I/O). A copy of `_demo_program` in
+    the repo's __graft_entry__.py, which builds the JAX bench's
+    workload."""
+    from ambigram_tpu_torch.engine.enumerate import enumerate_pairs
+    from ambigram_tpu_torch.engine.ilp import build_bfb_program
+
+    start, end = 1, n_segments
+    pairs = enumerate_pairs(start, end)
+    T = len(pairs)
+    rng = np.random.default_rng(7)
+    x = np.zeros(2 * T)
+    for _ in range(5):
+        t = int(rng.integers(0, T))
+        x[T + t] += int(rng.integers(1, 3))
+    seg_cn = np.zeros(n_segments)
+    fbi_cn = np.zeros(n_segments)
+    for t in range(T):
+        i, j = pairs[t]
+        if x[T + t] > 0:
+            seg_cn[i - 1 : j] += 2 * x[T + t]
+            fbi_cn[i - 1] += x[T + t]
+            fbi_cn[j - 1] += x[T + t]
+    return build_bfb_program(start, end, seg_cn, fbi_cn, max(seg_cn.sum(), 1.0), 1)
+
+
 def build_workload(batch: int = 262144, device="cpu"):
     """(prog, scoring tensors on `device`, candidates X [batch, Vp] as a
     host array): the JAX bench's workload (the S=32 demo program), from
     the same seeds."""
-    if ROOT not in sys.path:
-        sys.path.insert(0, ROOT)
-    from __graft_entry__ import _demo_program
     from ambigram_tpu_torch.solver.score import scoring_tensors
 
     prog = _demo_program(32)
@@ -72,7 +96,7 @@ def _require_cuda():
         raise RuntimeError("the port's bench measures an NVIDIA GPU and none is available")
 
 
-def bench_device(st, X, iters: int = 200, block_b: int = 64):
+def bench_device(st, X, iters: int = 200, block_b: int = 128):
     """Candidates per second of K2's chain on the card: (cand/s,
     checksum, kernel_path). `st` must be on the card; X is moved there
     once, outside the timed region."""
@@ -148,8 +172,8 @@ def bench_kernel_sweep(st, X, iters: int = 200) -> dict:
 
 def suite_programs():
     """The 4xS48 suite of the JAX bench (noise 0.05, V = 2352 per case)."""
-    from ambigram_tpu.engine.pipeline import extract_programs
-    from ambigram_tpu.scripts.simulate import simulate_bfb_case, write_case
+    from ambigram_tpu_torch.engine.pipeline import extract_programs
+    from ambigram_tpu_torch.scripts.simulate import simulate_bfb_case, write_case
 
     progs = []
     td = tempfile.mkdtemp(prefix="ambigram_suite_bench_")
@@ -169,8 +193,8 @@ def bench_suite() -> dict:
     the feasible epsilons, cases solved) per solver mode; `exact` is the
     host MILP at 30 s per case. One warm-up device solve first, reported
     apart: it pays the CUDA context and the kernel build."""
-    from ambigram_tpu.solver.exact import solve_exact
-    from ambigram_tpu.utils.profiling import GLOBAL
+    from ambigram_tpu_torch.solver.exact import solve_exact
+    from ambigram_tpu_torch.utils.profiling import GLOBAL
     from ambigram_tpu_torch.engine.pipeline import _solve
     from ambigram_tpu_torch.solver.search import solve_device
 
@@ -217,7 +241,7 @@ def bench_suite() -> dict:
 def batch_case_paths(workdir: str, n_cases: int = 16):
     """The JAX bench's batch cases: S=32 and S=48 alternating, noise
     0.05, seeds 200, 201, ...; returns their .lh paths."""
-    from ambigram_tpu.scripts.simulate import simulate_bfb_case, write_case
+    from ambigram_tpu_torch.scripts.simulate import simulate_bfb_case, write_case
 
     paths = []
     for i in range(n_cases):
@@ -231,7 +255,7 @@ def batch_case_paths(workdir: str, n_cases: int = 16):
 def case_violations(lh_paths, results):
     """The hard violation of every solved chromosome of every case, as
     the replayed solution leaves it."""
-    from ambigram_tpu.engine.pipeline import extract_programs
+    from ambigram_tpu_torch.engine.pipeline import extract_programs
 
     out = []
     for path, r in zip(lh_paths, results):
@@ -247,10 +271,9 @@ def bench_batch() -> dict:
     of the host MILP (15 s per case) that stands in for the reference's
     one process per sample. One identical warm-up run first, reported
     apart."""
-    from ambigram_tpu.engine.pipeline import extract_programs, run_bfb
-    from ambigram_tpu.solver.exact import solve_exact
-    from ambigram_tpu.utils.profiling import GLOBAL
-    from ambigram_tpu_torch.engine.pipeline import run_bfb_many
+    from ambigram_tpu_torch.engine.pipeline import extract_programs, run_bfb, run_bfb_many
+    from ambigram_tpu_torch.solver.exact import solve_exact
+    from ambigram_tpu_torch.utils.profiling import GLOBAL
 
     device, n_cases = "cuda", 16
     td = tempfile.mkdtemp(prefix="ambigram_batch_bench_")
@@ -275,7 +298,7 @@ def bench_batch() -> dict:
         serial_ok, serial_eps = 0, 0.0
         for p in lh_paths:
             presolved = [solve_exact(pr, time_limit=15.0) if pr is not None else None for pr in extract_programs(p)]
-            r = run_bfb(p, solver="exact", presolved=presolved)
+            r = run_bfb(p, solver="exact", device=device, presolved=presolved)
             serial_ok += bool(any(s for s in r.path_strings))
             serial_eps += r.ilp_error
         serial_secs = time.perf_counter() - t0

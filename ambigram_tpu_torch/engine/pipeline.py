@@ -1,47 +1,106 @@
 """The `bfb` op, for one LH case and for a batch of cases, with the
 port's device search.
 
-Port of `_solve`, `run_bfb`, `run_bfb_many` and `solve_programs_batch`
-(ambigram_tpu/engine/pipeline.py). The fitting programs come from the
-JAX-free `extract_programs`; each non-trivial chromosome is solved here,
-with the same routing as the JAX package; the path replay is the
-JAX-free reference `run_bfb` handed the solutions as `presolved` (the
-pattern the reference `run_bfb_many` uses).
+Port of ambigram_tpu/engine/pipeline.py. The host parts (the result
+types, `extract_programs`, the path replay `run_bfb` with its face
+retry, auto's host tails `_auto_post`/`_post_big_auto`, the ledgers and
+the result store) are copies that keep the original's meaning line for
+line. Where the port differs:
+
+- `_solve`, `run_bfb`, `run_bfb_many` and `solve_programs_batch` take a
+  torch `device` and run the port's search (solver/search.py) there;
+  a CUDA device without a card raises;
+- `solve_programs_batch` runs on one device: the mesh, the stacked
+  sharded pass `_solve_stacked` and the multi-device legs are not
+  ported (with one case slot the JAX policy never reaches them).
 """
 
 from __future__ import annotations
 
-import io
+import io as _io
 import os
+import time
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
-from ambigram_tpu.engine.ilp import BfbProgram
-from ambigram_tpu.engine.pipeline import (
-    AUTO_EXACT_FIRST_MAX_VARS,
-    BATCH_EXACT_PREPASS_MAX_VARS,
-    BfbResult,
-    _append_case_ledgers,
-    _auto_post,
-    _case_store_key,
-    _per_case_lns_budget,
-    _post_big_auto,
-    _result_from_store,
-    _result_to_store,
-    extract_programs,
-)
-from ambigram_tpu.engine.pipeline import run_bfb as _replay_bfb
-from ambigram_tpu.utils.profiling import GLOBAL
+import numpy as np
+
+from ambigram_tpu_torch.engine.components import read_components
+from ambigram_tpu_torch.engine.dag import construct_dag
+from ambigram_tpu_torch.engine.enumerate import sorted_key_order
+from ambigram_tpu_torch.engine.ilp import BfbProgram, build_bfb_program
+from ambigram_tpu_torch.engine.indel import get_indel_bias, indel_bfb
+from ambigram_tpu_torch.engine.junccn import fbi_bias, get_junc_cn
+from ambigram_tpu_torch.engine.path import format_bfb, replay_bfb
+from ambigram_tpu_torch.engine.props import parse_bfb_props
+from ambigram_tpu_torch.model.genome import Genome, Junction, Segment, VertexPath
+from ambigram_tpu_torch.utils.profiling import GLOBAL
+
+
+@dataclass
+class ChromosomeResult:
+    start: int
+    end: int
+    path: VertexPath
+    path_string: str
+    element_cn: Optional[np.ndarray] = None
+    objective: float = 0.0
+    trivial: bool = False
+    infeasible: bool = False
+    # False when the solution used for path reconstruction is a feasible
+    # incumbent whose optimality no stage proved (time-boxed solves).
+    certified: bool = True
+
+
+@dataclass
+class BfbResult:
+    paths: List[VertexPath] = field(default_factory=list)
+    chromosomes: List[ChromosomeResult] = field(default_factory=list)
+    path_strings: List[str] = field(default_factory=list)
+    merged_path: Optional[VertexPath] = None
+    merged_path_string: str = ""
+    target_cn: List[int] = field(default_factory=list)
+    ilp_error: float = 0.0
+    num_inversions: int = 0
+    is_resolved: bool = True
+    seconds: float = 0.0
+    output_juncs: List[Junction] = field(default_factory=list)
+    genome: Optional[Genome] = None
+
+
+# Auto-solver size split: programs at or under this many variables go to
+# the in-process MILP first (closes in well under a second up to ~2k vars
+# on one core); larger ones start with the batched device search whose
+# incumbent and LP certificate prune the exact stages.
+AUTO_EXACT_FIRST_MAX_VARS = 2048
+
+# Batch pre-pass split for run_bfb_many: programs at or under this many
+# variables are settled exactly on host (≤~0.25s each) before the single
+# device-sharded pass, so all-small batches never pay a search compile.
+BATCH_EXACT_PREPASS_MAX_VARS = 512
+
+
+def _per_case_lns_budget(n_cases: int, workers: int) -> float:
+    """One global LNS wall-clock budget for a batch: cases run `workers`
+    at a time, so per-case budget = total divided by the number of
+    serial waves — total LNS wall-clock stays ~AMBIGRAM_LNS_BUDGET
+    regardless of batch size (a flat per-case floor would grow linearly
+    with the batch)."""
+    import math
+
+    total = float(os.environ.get("AMBIGRAM_LNS_BUDGET", 45.0))
+    return max(1.0, total / math.ceil(max(1, n_cases) / max(1, workers)))
 
 
 def _solve(prog: BfbProgram, solver: str, device, lns_budget: Optional[float] = None):
-    """`exact` and `native` run the shared host solvers. `device` runs
-    the port's search on `device`. `auto` settles programs of at most
+    """`exact` and `native` run the host solvers. `device` runs the
+    port's search on `device`. `auto` settles programs of at most
     AUTO_EXACT_FIRST_MAX_VARS variables in the host MILP first and sends
     the rest (and any the MILP left open) to the port's search, followed
-    by the shared auto tail `_auto_post`. `lns_budget` caps the search's
+    by auto's host tail `_auto_post`. `lns_budget` caps the search's
     LNS polish (None: AMBIGRAM_LNS_BUDGET)."""
-    from ambigram_tpu.solver.exact import have_exact_solver, solve_exact
+    from ambigram_tpu_torch.solver.exact import have_exact_solver, solve_exact
     from ambigram_tpu_torch.solver.search import solve_device
 
     if solver == "exact":
@@ -50,7 +109,7 @@ def _solve(prog: BfbProgram, solver: str, device, lns_budget: Optional[float] = 
     if solver == "device":
         return solve_device(prog, device=device, lns_budget=lns_budget)
     if solver == "native":
-        from ambigram_tpu.solver.native_bnb import solve_native
+        from ambigram_tpu_torch.solver.native_bnb import solve_native
 
         with GLOBAL.phase("solve.native"):
             res = solve_native(prog)
@@ -70,6 +129,69 @@ def _solve(prog: BfbProgram, solver: str, device, lns_budget: Optional[float] = 
     return _auto_post(prog, res, candidates, tried_exact=bool(candidates))
 
 
+def _auto_post(
+    prog: BfbProgram,
+    res,
+    candidates: Optional[list] = None,
+    tried_exact: bool = False,
+):
+    """Auto mode's host tail after a device search result `res`:
+    warm-started native B&B polish (skipped where measured useless),
+    last-resort exact MILP when nothing feasible exists, best-feasible
+    selection. Shared by `_solve` and the batched device path
+    (`solve_programs_batch` over `solve_device_batch` results).
+    `tried_exact`: a budgeted solve_exact already ran for this program
+    upstream — re-running the identical solve as the last resort would
+    burn another full budget for no new information."""
+    from ambigram_tpu_torch.solver.exact import have_exact_solver, solve_exact
+    from ambigram_tpu_torch.solver.native_bnb import solve_native
+
+    candidates = list(candidates or [])
+    if res.status == "optimal":
+        return res
+    candidates.append(res)
+    # warm-started native B&B polish: pays off on small/mid programs;
+    # at V > 2048 it was measured to never improve the search incumbent
+    # within its budget (S=48/64 noisy suites: identical eps, 12-18s
+    # spent), so skip it there when the incumbent is already feasible
+    large = prog.num_vars > AUTO_EXACT_FIRST_MAX_VARS
+    res_feasible = res.status == "heuristic" and float(
+        prog.hard_violation(res.x.astype(np.float64))
+    ) == 0.0
+    if not (large and res_feasible):
+        with GLOBAL.phase("solve.native"):
+            nres = solve_native(prog, warm=res, time_limit_s=10.0)
+        if nres is not None:
+            if nres.status in ("optimal", "infeasible"):
+                return nres
+            candidates.append(nres)
+
+    def _feasible(pool):
+        return [
+            c
+            for c in pool
+            if c.status == "heuristic"
+            and float(prog.hard_violation(c.x.astype(np.float64))) == 0.0
+        ]
+
+    feasible = _feasible(candidates)
+    if not feasible and not tried_exact and have_exact_solver():
+        # last resort for ANY size when nothing feasible exists: at
+        # large V the MILP rarely betters the search incumbent within
+        # any budget (see measurements above), but an infeasible pool
+        # means no answer at all — and small programs reach here too
+        # when a batch routed them around the exact-first stage
+        with GLOBAL.phase("solve.exact"):
+            eres = solve_exact(prog, time_limit=60.0)
+        if eres.status in ("optimal", "infeasible"):
+            return eres
+        candidates.append(eres)
+        feasible = _feasible(candidates)
+    if feasible:
+        return min(feasible, key=lambda c: c.epsilon_sum)
+    return candidates[0]
+
+
 def run_bfb(
     lh_path: str,
     juncs_path: str = "",
@@ -81,34 +203,489 @@ def run_bfb(
     out=None,
     ledger_dir: Optional[str] = None,
     lp_prefix: str = "sample",
+    presolved: Optional[List] = None,
     emit_lp: bool = False,
 ) -> BfbResult:
-    """Reconstruct the BFB path(s) of one LH case; `device` is where the
-    search runs (a CUDA device without a card raises)."""
+    """Reconstruct the BFB path(s) of one LH case. Each non-trivial
+    chromosome's program is solved by `_solve` with the search on
+    `device` (a CUDA device without a card raises), unless `presolved`
+    holds its solution; then its path is replayed."""
     from ambigram_tpu_torch.solver.search import resolve_device
 
     device = resolve_device(device)
-    progs = extract_programs(lh_path, juncs_path, juncs_info)
-    sols = []
-    for prog in progs:
-        if prog is None:
-            sols.append(None)
+    begin = time.perf_counter()
+    if out is None:
+        out = _io.StringIO()
+
+    with GLOBAL.phase("parse"):
+        g = Genome.from_lh(lh_path)
+        g.calculate_hap_depth()
+        g.calculate_copy_num()
+
+    props = parse_bfb_props(lh_path)
+    original_segs: Dict[Segment, Segment] = {}
+    unused_sv: List[Junction] = []
+    if props.ins_mode == 1:
+        from ambigram_tpu_torch.engine.trx import insert_before_bfb
+
+        g = insert_before_bfb(g, props.ins_chr, original_segs, unused_sv)
+    elif props.con_mode == 1:
+        from ambigram_tpu_torch.engine.trx import concat_before_bfb
+
+        g = concat_before_bfb(g, props.con_chr, original_segs, unused_sv)
+
+    sources = list(g.sources)
+    sinks = list(g.sinks)
+    segs = list(g.segments)
+    for i, (src, snk) in enumerate(zip(sources, sinks)):
+        for seg_id in range(src.id, snk.id + 1):
+            g.segment_by_id(seg_id).partition = i
+
+    components = read_components(g, original_segs, juncs_path)
+
+    result = BfbResult(genome=g)
+    result.target_cn = [0] * len(g.segments)
+    num_inv = 0
+
+    for n in range(len(sinks)):
+        start_id = sources[n].id
+        end_id = sinks[n].id
+
+        inversions, junc_cn = get_junc_cn(g, start_id, end_id)
+        num_inv += len(inversions)
+        bias = fbi_bias(inversions, junc_cn, start_id, end_id)
+        get_indel_bias(g, start_id, end_id)
+
+        inversion_cn_sum = float(junc_cn[: end_id + 1, 1].sum())
+        valid_components = [
+            c for c in components if g.segment_by_id(c[0]).partition == n
+        ]
+
+        if abs(inversion_cn_sum) < 1e-6 and not valid_components:
+            path = [g.segment_by_id(i).pos for i in range(start_id, end_id + 1)]
+            out.write(format_bfb(path) + "\n")
+            result.paths.append(path)
+            result.chromosomes.append(
+                ChromosomeResult(
+                    start=start_id,
+                    end=end_id,
+                    path=path,
+                    path_string=format_bfb(path),
+                    trivial=True,
+                )
+            )
             continue
-        with GLOBAL.phase("solve"):
-            sols.append(_solve(prog, solver, device))
-    return _replay_bfb(
-        lh_path,
-        juncs_path=juncs_path,
-        juncs_info=juncs_info,
-        is_reversed=is_reversed,
-        print_all=print_all,
-        solver="exact",
-        out=out,
-        ledger_dir=ledger_dir,
-        lp_prefix=lp_prefix,
-        presolved=sols,
-        emit_lp=emit_lp,
+
+        seg_cn = np.array(
+            [g.segment_by_id(i).weight.copy_num for i in range(start_id, end_id + 1)]
+        )
+        fbi_cn = junc_cn[start_id : end_id + 1, 1].copy()
+        max_cn = sum(s.weight.copy_num for s in g.segments)
+        with GLOBAL.phase("program_build"):
+            prog = build_bfb_program(
+                start_id,
+                end_id,
+                seg_cn,
+                fbi_cn,
+                max_cn,
+                bias,
+                components=valid_components,
+                juncs_info=juncs_info,
+            )
+        if emit_lp:
+            # the reference writes <lp_prefix>.mps / .lp for every solve
+            # (LGM.cpp:4749-4750, overwritten per chromosome); here the
+            # artifact is opt-in (like the ledgers) since no external
+            # solver is invoked — it exists for differential checking
+            from ambigram_tpu_torch.io.program_io import write_lp, write_mps
+
+            write_lp(prog, lp_prefix + ".lp")
+            write_mps(prog, lp_prefix + ".mps")
+        if presolved is not None and n < len(presolved) and presolved[n] is not None:
+            sol = presolved[n]
+        else:
+            with GLOBAL.phase("solve"):
+                sol = _solve(prog, solver, device)
+        if sol.status == "heuristic" and float(
+            prog.hard_violation(sol.x.astype(np.float64))
+        ) != 0.0:
+            # a "heuristic" incumbent must satisfy the hard constraints
+            # to be usable for path reconstruction; demote otherwise
+            sol.status = "error"
+        if sol.status not in ("optimal", "heuristic"):
+            path = [g.segment_by_id(i).pos for i in range(start_id, end_id + 1)]
+            out.write(format_bfb(path) + "\n")
+            out.write("ILP is unsolvable.\n")
+            result.paths.append(path)
+            result.chromosomes.append(
+                ChromosomeResult(
+                    start=start_id,
+                    end=end_id,
+                    path=path,
+                    path_string=format_bfb(path),
+                    trivial=True,
+                    infeasible=True,
+                )
+            )
+            continue
+        element_cn = sol.x
+        pairs = prog.pairs
+        T = len(pairs)
+        entries = sorted_key_order(pairs)
+        with GLOBAL.phase("replay"):
+            adj, node2pat, node2loop = construct_dag(entries, element_cn)
+            path: VertexPath = replay_bfb(
+                g,
+                adj,
+                node2pat,
+                node2loop,
+                inversions,
+                is_reversed=is_reversed,
+                print_all=print_all,
+                out=out,
+            )
+        if not path and np.any(element_cn > 0):
+            # the solution exists but no topological order of its
+            # structure replays (cyclic graph from the shared-parent
+            # rule, or an exhausted order budget). BFB optima are
+            # routinely non-unique — sweep SECONDARY objectives over the
+            # equal-or-better epsilon face (solver.exact.solve_on_face)
+            # until a vertex replays or the sweep budget runs out. The
+            # reference has no such retry (it just prints nothing,
+            # localhap.cpp:261); goldens are unaffected because their
+            # first solution replays. Every accepted alternate has
+            # epsilon_sum <= the incumbent's, so ilp_error/target_cn
+            # never silently inflate.
+            sol2, element_cn2, path2 = _retry_replay_on_face(
+                prog,
+                sol,
+                element_cn,
+                entries,
+                g,
+                inversions,
+                is_reversed,
+                print_all,
+                out,
+            )
+            if path2:
+                sol, element_cn, path = sol2, element_cn2, path2
+        result.ilp_error += sol.objective
+
+        # target CN accumulation (localhap.cpp:222-232)
+        for t in range(T):
+            i1, i2 = int(pairs[t][0]), int(pairs[t][1])
+            if element_cn[t] > 0:
+                for k in range(i1 - 1, i2):
+                    result.target_cn[k] += int(element_cn[t])
+            if element_cn[T + t] > 0:
+                for k in range(i1 - 1, i2):
+                    result.target_cn[k] += int(element_cn[T + t]) * 2
+        indel_bfb(g, path, start_id, end_id, out=out)
+        if props.ins_mode == 1 or props.con_mode == 1:
+            from ambigram_tpu_torch.engine.trx import virus_bfb
+
+            virus_bfb(g, path, original_segs, unused_sv, out=out)
+        result.paths.append(path)
+        result.chromosomes.append(
+            ChromosomeResult(
+                start=start_id,
+                end=end_id,
+                path=path,
+                path_string=format_bfb(path),
+                element_cn=element_cn,
+                objective=sol.objective,
+                certified=sol.status == "optimal",
+            )
+        )
+
+    result.num_inversions = num_inv
+
+    # output junction derivation (localhap.cpp:267-289)
+    output_juncs: List[Junction] = []
+    path_len = 0
+    for p in result.paths:
+        path_len += len(p)
+        for i in range(len(p) - 1):
+            u, v = p[i], p[i + 1]
+            if not (abs(u.id - v.id) == 1 and u.dir == v.dir):
+                has_junc = False
+                for j in output_juncs:
+                    a, b = j.edge_a, j.edge_b
+                    if (a.source is u and a.target is v) or (
+                        b.source is u and b.target is v
+                    ):
+                        has_junc = True
+                        j.weight.copy_num += 1
+                if not has_junc:
+                    output_juncs.append(
+                        Junction(u.seg, v.seg, u.dir, v.dir, 30, 1, 1, True, False, False)
+                    )
+
+    # post-BFB translocation merging (localhap.cpp:296-316)
+    if props.ins_mode == 2 or props.con_mode == 2:
+        from ambigram_tpu_torch.engine.trx import translocation_bfb
+
+        res_path: VertexPath = []
+        translocation_bfb(g, result.paths, res_path, props.main_chr, out=out)
+        result.merged_path = res_path
+        result.merged_path_string = format_bfb(res_path)
+        for i in range(len(res_path) - 1):
+            u, v = res_path[i], res_path[i + 1]
+            if not (abs(u.id - v.id) == 1 and u.dir == v.dir):
+                has_junc = False
+                for j in output_juncs:
+                    a, b = j.edge_a, j.edge_b
+                    if (a.source is u and a.target is v) or (
+                        b.source is u and b.target is v
+                    ):
+                        has_junc = True
+                if not has_junc:
+                    output_juncs.append(
+                        Junction(u.seg, v.seg, u.dir, v.dir, 30, 1, 1, True, False, False)
+                    )
+    result.output_juncs = output_juncs
+
+    # resolved check (localhap.cpp:318-324)
+    if result.ilp_error < 0.1:
+        error = 0
+        for k, seg in enumerate(segs):
+            # reference accumulates abs(double diff) into an int, which
+            # truncates toward zero (localhap.cpp:320-322)
+            error += int(abs(seg.weight.copy_num - result.target_cn[k]))
+        if error > len(segs):
+            result.is_resolved = False
+
+    result.path_strings = [c.path_string for c in result.chromosomes]
+    result.seconds = time.perf_counter() - begin
+
+    if ledger_dir is not None:
+        _append_ledgers(result, g, lh_path, juncs_path, ledger_dir, segs, path_len)
+    return result
+
+
+def _retry_replay_on_face(
+    prog,
+    sol,
+    element_cn,
+    entries,
+    g,
+    inversions,
+    is_reversed,
+    print_all,
+    out,
+):
+    """Replay-retry sweep over the epsilon face at the incumbent's
+    objective (VERDICT r4 #4). Attempts, in order: the plain re-solve
+    (often lands elsewhere already), sparsest structure (min Σx — fewer
+    DAG nodes, simpler orders), densest (max Σx), then seeded random
+    secondary objectives. Distinct solutions only; first replayable
+    vertex wins. Returns (sol, element_cn, path) — path is [] when the
+    whole sweep fails, and a per-case log line records how many face
+    vertices were tried so a persistent no-path is auditable
+    (AMBIGRAM_FACE_RETRIES caps the sweep, default 6)."""
+    from ambigram_tpu_torch.engine.dag import find_cycle
+    from ambigram_tpu_torch.engine.enumerate import pair_index
+    from ambigram_tpu_torch.engine.path import direct_splice_replay
+    from ambigram_tpu_torch.solver.exact import have_exact_solver, solve_on_face
+
+    # step 0 FIRST — the direct replay is pure Python and needs no MILP
+    # solver, so a host without scipy still recovers the cases the
+    # reference cannot (the face machinery below does need the solver)
+    with GLOBAL.phase("replay"):
+        path0 = direct_splice_replay(
+            g,
+            prog.pairs,
+            element_cn,
+            inversions,
+            is_reversed=is_reversed,
+            out=out,
+        )
+    if path0:
+        return sol, element_cn, path0
+    if not have_exact_solver():
+        return sol, element_cn, []
+    n_retries = int(os.environ.get("AMBIGRAM_FACE_RETRIES", 6))
+    per_solve = float(os.environ.get("AMBIGRAM_FACE_SOLVE_SECONDS", 10.0))
+    eps_cap = float(prog.residual_objective(element_cn.astype(np.float64)))
+    V = prog.num_vars
+    T = len(prog.pairs)
+
+    def cycle_cut(adj, n2p, n2l):
+        """Variable-index set of one directed cycle, [] when acyclic."""
+        nodes = find_cycle(adj)
+        cut = set()
+        for k in nodes:
+            # a node can carry both payloads (the node2loop sort quirk);
+            # include both — a slightly stronger cut is still sound for
+            # a retry heuristic
+            if n2p[k]:
+                cut.add(pair_index(prog.start, prog.end, n2p[k][0], n2p[k][1]))
+            if n2l[k]:
+                cut.add(
+                    T + pair_index(prog.start, prog.end, n2l[k][0], n2l[k][1])
+                )
+        return sorted(cut)
+
+    # cutting-plane loop: every CYCLIC solution contributes a cycle cut
+    # (excluding the whole family of solutions reproducing that cycle).
+    # Cut faces are attacked LOCALLY first — cut_repair (solver.lns)
+    # re-solves only the endpoint-neighborhood + cut variables with the
+    # cuts as indicator constraints, closing in seconds where the
+    # full-program face MILP finds nothing in its whole budget on hard
+    # noisy instances. The global face solve remains the opener (cheap
+    # when optima are plentiful) and the acyclic-diversification tool.
+    # A repair may cost epsilon (bounded below); the accepted alternate
+    # reports its own objective, so quality loss is visible, never
+    # silent.
+    from ambigram_tpu_torch.solver.exact import SolveResult
+    from ambigram_tpu_torch.solver.lns import cut_repair
+
+    cuts: List[List[int]] = []
+    adj0, n2p0, n2l0 = construct_dag(entries, element_cn)
+    first_cut = cycle_cut(adj0, n2p0, n2l0)
+    if first_cut:
+        cuts.append(first_cut)
+    rng = np.random.default_rng(0)
+    # repaired structures may fit worse than the unreplayable optimum;
+    # tolerate a bounded degradation (5% + one CN unit) — a replayable
+    # near-optimum beats printing nothing (the reference's outcome)
+    eps_accept = eps_cap * 1.05 + 1.0
+    tried = {element_cn.tobytes()}
+    attempts = 0
+    global_weights = [np.zeros(V), np.ones(V)]
+    while attempts < n_retries:
+        attempts += 1
+        alt = None
+        if cuts:
+            with GLOBAL.phase("solve"):
+                x_rep = cut_repair(prog, element_cn, cuts, time_limit=per_solve / 3.0)
+            if x_rep is not None and x_rep.tobytes() not in tried:
+                eps_rep = float(prog.residual_objective(x_rep.astype(np.float64)))
+                if eps_rep <= eps_accept:
+                    alt = SolveResult(
+                        x=x_rep,
+                        epsilon_sum=eps_rep,
+                        objective=eps_rep - prog.bias,
+                        status="heuristic",
+                    )
+        if alt is None:
+            # no cuts yet (acyclic-but-unreplayable), or the local
+            # repair failed: one global face solve, varied objectives
+            w = (
+                global_weights.pop(0)
+                if global_weights
+                else rng.integers(-8, 9, size=V).astype(np.float64)
+            )
+            with GLOBAL.phase("solve"):
+                alt, reason = solve_on_face(
+                    prog, eps_cap, w, time_limit=per_solve, forbidden_sets=cuts
+                )
+            if alt is None:
+                if reason == "infeasible" and cuts and eps_cap < eps_accept:
+                    eps_cap = min(eps_cap * 1.05 + 1.0, eps_accept)
+                    continue  # cuts exhausted the face: relax a step
+                # a face proven empty AT the acceptance ceiling cannot
+                # become feasible under different secondary weights —
+                # stop instead of re-proving it each remaining attempt
+                break  # or timeout/error: this budget won't crack it
+        if alt.x.tobytes() in tried:
+            continue
+        tried.add(alt.x.tobytes())
+        adj2, n2p2, n2l2 = construct_dag(entries, alt.x)
+        cut = cycle_cut(adj2, n2p2, n2l2)
+        if cut:
+            # cyclic alternate: direct span-ordered replay first, cut
+            # only if that fails too
+            with GLOBAL.phase("replay"):
+                path2 = direct_splice_replay(
+                    g,
+                    prog.pairs,
+                    alt.x,
+                    inversions,
+                    is_reversed=is_reversed,
+                    out=out,
+                )
+            if path2:
+                return alt, alt.x, path2
+            cuts.append(cut)
+            continue  # cyclic again: cut it out and re-solve
+        with GLOBAL.phase("replay"):
+            path2: VertexPath = replay_bfb(
+                g,
+                adj2,
+                n2p2,
+                n2l2,
+                inversions,
+                is_reversed=is_reversed,
+                print_all=print_all,
+                out=out,
+            )
+        if path2:
+            return alt, alt.x, path2
+    from ambigram_tpu_torch.native import _warn_budget
+
+    _warn_budget(
+        "no vertex of the eps<=%.4f face replayed into a BFB path "
+        "(%d distinct solutions, %d cycle cuts, %d face solves)"
+        % (eps_cap, len(tried) - 1, len(cuts), attempts)
     )
+    return sol, element_cn, []
+
+
+def extract_programs(
+    lh_path: str, juncs_path: str = "", juncs_info: bool = False
+) -> List[Optional[BfbProgram]]:
+    """Per-chromosome fitting programs for one case (None where the
+    chromosome is trivial). Mirrors run_bfb's preamble on a private
+    Genome instance."""
+    g = Genome.from_lh(lh_path)
+    g.calculate_hap_depth()
+    g.calculate_copy_num()
+    props = parse_bfb_props(lh_path)
+    original_segs: Dict[Segment, Segment] = {}
+    unused_sv: List[Junction] = []
+    if props.ins_mode == 1:
+        from ambigram_tpu_torch.engine.trx import insert_before_bfb
+
+        g = insert_before_bfb(g, props.ins_chr, original_segs, unused_sv)
+    elif props.con_mode == 1:
+        from ambigram_tpu_torch.engine.trx import concat_before_bfb
+
+        g = concat_before_bfb(g, props.con_chr, original_segs, unused_sv)
+    for i, (src, snk) in enumerate(zip(g.sources, g.sinks)):
+        for seg_id in range(src.id, snk.id + 1):
+            g.segment_by_id(seg_id).partition = i
+    components = read_components(g, original_segs, juncs_path)
+    out: List[Optional[BfbProgram]] = []
+    for n in range(len(g.sinks)):
+        start_id = g.sources[n].id
+        end_id = g.sinks[n].id
+        inversions, junc_cn = get_junc_cn(g, start_id, end_id)
+        bias = fbi_bias(inversions, junc_cn, start_id, end_id)
+        get_indel_bias(g, start_id, end_id)
+        inversion_cn_sum = float(junc_cn[: end_id + 1, 1].sum())
+        valid_components = [
+            c for c in components if g.segment_by_id(c[0]).partition == n
+        ]
+        if abs(inversion_cn_sum) < 1e-6 and not valid_components:
+            out.append(None)
+            continue
+        seg_cn = np.array(
+            [g.segment_by_id(i).weight.copy_num for i in range(start_id, end_id + 1)]
+        )
+        out.append(
+            build_bfb_program(
+                start_id,
+                end_id,
+                seg_cn,
+                junc_cn[start_id : end_id + 1, 1].copy(),
+                sum(s.weight.copy_num for s in g.segments),
+                bias,
+                components=valid_components,
+                juncs_info=juncs_info,
+            )
+        )
+    return out
 
 
 def run_bfb_many(
@@ -158,17 +735,18 @@ def run_bfb_many(
     solutions = solve_programs_batch(flat, index, solver=solver, device=device)
 
     results: List[Optional[BfbResult]] = [None] * len(lh_paths)
-    buffers: Dict[int, io.StringIO] = {}
+    buffers: Dict[int, _io.StringIO] = {}
 
     def _replay_case(i: int) -> None:
         presolved = [solutions.get((i, n)) for n in range(len(per_case_progs[i]))]
-        buf = buffers[i] = io.StringIO()
-        results[i] = _replay_bfb(
+        buf = buffers[i] = _io.StringIO()
+        results[i] = run_bfb(
             lh_paths[i],
             juncs_path=juncs_paths[i],
             juncs_info=juncs_info,
             is_reversed=is_reversed,
             solver="exact",
+            device=device,
             out=buf,
             presolved=presolved,
         )
@@ -186,6 +764,14 @@ def run_bfb_many(
         if result_store:
             _result_to_store(os.path.join(result_store, store_keys[i] + ".json"), results[i])
     return results
+
+
+def _append_case_ledgers(
+    res: BfbResult, lh_path: str, juncs_path: str, ledger_dir: str
+) -> None:
+    segs = list(res.genome.segments) if res.genome is not None else []
+    path_len = sum(len(p) for p in res.paths)
+    _append_ledgers(res, res.genome, lh_path, juncs_path, ledger_dir, segs, path_len)
 
 
 def solve_programs_batch(
@@ -210,7 +796,7 @@ def solve_programs_batch(
         # settle small and mid-size programs exactly on the host first,
         # threaded (HiGHS releases the GIL), on short budgets; what is
         # left open falls through to the device search
-        from ambigram_tpu.solver.exact import have_exact_solver, solve_exact
+        from ambigram_tpu_torch.solver.exact import have_exact_solver, solve_exact
 
         def _prepass(item):
             key, prog = item
@@ -245,8 +831,134 @@ def solve_programs_batch(
             solutions[index[0]] = _solve(flat[0], solver, device, lns_budget=per_case_lns)
         flat, index = [], []
     if flat:
-        from ambigram_tpu.solver.exact import solve_exact
+        from ambigram_tpu_torch.solver.exact import solve_exact
 
         for key, prog in zip(index, flat):
             solutions[key] = solve_exact(prog)
     return solutions
+
+
+def _post_big_auto(prog: BfbProgram, res, solver: str):
+    """Auto's host tail for one case-stacked search result. Auto's
+    policy is exact-FIRST for small/mid programs (the per-case path,
+    `_solve`); the case-stacked batch routes them through the search
+    instead, so run the exact stage here when the search did not
+    already certify — batch results must match per-case runs, and a
+    small program must never end uncertified merely because it arrived
+    in a batch (advisor r4)."""
+    if solver != "auto":
+        return res
+    if res.status != "optimal" and prog.num_vars <= AUTO_EXACT_FIRST_MAX_VARS:
+        from ambigram_tpu_torch.solver.exact import have_exact_solver, solve_exact
+
+        if have_exact_solver():
+            with GLOBAL.phase("solve.exact"):
+                eres = solve_exact(prog, time_limit=60.0)
+            if eres.status in ("optimal", "infeasible"):
+                return eres
+            return _auto_post(prog, res, [eres], tried_exact=True)
+    return _auto_post(prog, res)
+
+
+def _case_store_key(lh_path: str) -> str:
+    import hashlib
+
+    digest = hashlib.sha1(open(lh_path, "rb").read()).hexdigest()[:16]
+    return "%s-%s" % (os.path.basename(lh_path), digest)
+
+
+def _result_to_store(fn: str, res: BfbResult) -> None:
+    import json
+
+    payload = {
+        "path_strings": res.path_strings,
+        "merged_path_string": res.merged_path_string,
+        "target_cn": [int(v) for v in res.target_cn],
+        "ilp_error": res.ilp_error,
+        "num_inversions": res.num_inversions,
+        "is_resolved": res.is_resolved,
+        "seconds": res.seconds,
+    }
+    tmp = fn + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(payload, f)
+    os.replace(tmp, fn)  # atomic: a crash never leaves a half-written result
+
+
+def _result_from_store(fn: str) -> BfbResult:
+    import json
+
+    payload = json.load(open(fn))
+    return BfbResult(
+        path_strings=payload["path_strings"],
+        merged_path_string=payload["merged_path_string"],
+        target_cn=payload["target_cn"],
+        ilp_error=payload["ilp_error"],
+        num_inversions=payload["num_inversions"],
+        is_resolved=payload["is_resolved"],
+        seconds=payload["seconds"],
+    )
+
+
+def _append_ledgers(
+    result: BfbResult,
+    g: Genome,
+    lh_path: str,
+    juncs_path: str,
+    ledger_dir: str,
+    segs: List[Segment],
+    path_len: int,
+) -> None:
+    import os
+
+    cn_sum = sum(int(s.weight.copy_num) for s in segs)
+    max_cn = max((int(s.weight.copy_num) for s in segs), default=0)
+    with open(os.path.join(ledger_dir, "simulation_sv.txt"), "a") as f:
+        for j in g.junctions:
+            u, v = j.edge_a.source, j.edge_a.target
+            f.write(
+                "%s\t%s\t%s\t%d\t%s\t%s\t%d\t%s\t%g\tinput\n"
+                % (
+                    lh_path,
+                    juncs_path,
+                    u.seg.chrom,
+                    u.seg.end if u.dir == "+" else u.seg.start,
+                    u.dir,
+                    v.seg.chrom,
+                    v.seg.start if v.dir == "+" else v.seg.end,
+                    v.dir,
+                    j.weight.copy_num,
+                )
+            )
+        for j in result.output_juncs:
+            u, v = j.edge_a.source, j.edge_a.target
+            f.write(
+                "%s\t%s\t%s\t%d\t%s\t%s\t%d\t%s\t%g\toutput\n"
+                % (
+                    lh_path,
+                    juncs_path,
+                    u.seg.chrom,
+                    u.seg.end if u.dir == "+" else u.seg.start,
+                    u.dir,
+                    v.seg.chrom,
+                    v.seg.start if v.dir == "+" else v.seg.end,
+                    v.dir,
+                    j.weight.copy_num,
+                )
+            )
+    name = os.path.basename(lh_path)
+    name = lh_path[: lh_path.find(".")] if "." in lh_path else lh_path
+    with open(os.path.join(ledger_dir, "time.csv"), "a") as f:
+        f.write(
+            "%s,%d,%d,%d,%d,%d,%d,%s\n"
+            % (
+                name,
+                len(segs),
+                result.num_inversions,
+                len(g.junctions) - result.num_inversions,
+                cn_sum,
+                path_len,
+                max_cn,
+                result.seconds,
+            )
+        )

@@ -34,7 +34,8 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCKS: Dict[str, threading.Lock] = {}
 _LOCKS_GUARD = threading.Lock()
 # per kernel: {"seconds": build wall time (0.0 when the library was
-# already built), "log": nvcc's output (ptxas register/spill report)}
+# already built), "log": nvcc's output (ptxas register/spill report),
+# "path": the shared library}
 BUILD_INFO: Dict[str, dict] = {}
 
 
@@ -49,6 +50,24 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
 
 
+def build(src: str, so: str) -> dict:
+    """Compile the CUDA source `src` into the shared library `so` with
+    nvcc; {"seconds", "log"} of the build. Raises with nvcc's output when
+    the build fails."""
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    tmp = "%s.%d.tmp" % (so, os.getpid())
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    info = {"seconds": time.perf_counter() - t0, "log": (proc.stdout + proc.stderr).strip()}
+    if proc.returncode != 0:
+        raise RuntimeError(
+            "nvcc failed to build %s (exit %d): %s\n%s" % (src, proc.returncode, " ".join(cmd), info["log"])
+        )
+    os.replace(tmp, so)
+    return info
+
+
 def load(name: str) -> ctypes.CDLL:
     """The shared library of ``csrc/<name>.cu``, built on first use."""
     with _LOCKS_GUARD:
@@ -61,21 +80,9 @@ def load(name: str) -> ctypes.CDLL:
         with open(src, "rb") as f:
             digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
         so = os.path.join(BUILD_DIR, "lib%s-%s.so" % (name, digest.hexdigest()[:16]))
-        info = {"seconds": 0.0, "log": ""}
+        info = {"seconds": 0.0, "log": "", "path": so}
         if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = "%s.%d.tmp" % (so, os.getpid())
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            info["seconds"] = time.perf_counter() - t0
-            info["log"] = (proc.stdout + proc.stderr).strip()
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    "nvcc failed to build %s (exit %d): %s\n%s"
-                    % (src, proc.returncode, " ".join(cmd), info["log"])
-                )
-            os.replace(tmp, so)
+            info.update(build(src, so))
         lib = ctypes.CDLL(so)
         BUILD_INFO[name] = info
         _LIBS[name] = lib

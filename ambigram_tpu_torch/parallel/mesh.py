@@ -14,7 +14,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ambigram_tpu.engine.ilp import BfbProgram
+from ambigram_tpu_torch.engine.ilp import BfbProgram
 from ambigram_tpu_torch.solver.score import _BIG, ScoringTensors, _expand_f32, scoring_tensors
 
 

@@ -13,8 +13,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from ambigram_tpu.engine.enumerate import pair_index
-from ambigram_tpu.engine.ilp import BfbProgram
+from ambigram_tpu_torch.engine.enumerate import pair_index
+from ambigram_tpu_torch.engine.ilp import BfbProgram
 
 
 def half_ceil(x: float, eps: float = 1e-6) -> float:

@@ -1,10 +1,10 @@
 """Large-neighborhood polish for device-search incumbents.
 
-A copy of ambigram_tpu/solver/lns.py for the PyTorch port, cut to what
-`lns_polish` reaches (`cut_repair` serves paths not ported yet). Its
-only other difference: `lns_polish` takes `eps_quantum` from
-ambigram_tpu_torch.solver.host, because the original imports it from
-ambigram_tpu/solver/search.py, which imports jax.
+A copy of ambigram_tpu/solver/lns.py for the PyTorch port: `lns_polish`
+for the search's host tail and `cut_repair` for the replay's face retry
+(engine/pipeline.py). Its one difference: `lns_polish` takes
+`eps_quantum` from ambigram_tpu_torch.solver.host, because the original
+imports it from ambigram_tpu/solver/search.py, which imports jax.
 
 The device search (ambigram_tpu_torch.solver.search) is the throughput path,
 but its move neighborhood is local: on noisy profiles at S >= 32 it
@@ -15,7 +15,7 @@ outside a sliding window of segments, solve the *restricted* program
 exactly (it is tiny — a window of w segments frees O(w^2) variables),
 accept the strict improvement, slide on. Every window solve is a
 least-absolute-deviations MILP of exactly the full program's shape, so
-it reuses `milp_lad` (ambigram_tpu.solver.exact).
+it reuses `milp_lad` (ambigram_tpu_torch.solver.exact).
 
 Freezing is linear algebra, not re-derivation: with free columns F and
 frozen columns K, row bounds shift by G[:, K] @ x[K] and residual
@@ -37,8 +37,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from ambigram_tpu.engine.ilp import BfbProgram
-from ambigram_tpu.solver.exact import have_exact_solver, milp_lad
+from ambigram_tpu_torch.engine.ilp import BfbProgram
+from ambigram_tpu_torch.solver.exact import have_exact_solver, milp_lad
 
 
 def _num_blocks(prog: BfbProgram) -> int:
@@ -164,7 +164,7 @@ def _solve_window(
         sub_ub = np.zeros(0)
     import time as _time
 
-    from ambigram_tpu.utils.profiling import GLOBAL
+    from ambigram_tpu_torch.utils.profiling import GLOBAL
 
     t0 = _time.perf_counter()
     if screen_margin is not None:
@@ -246,6 +246,114 @@ def _endpoint_free_mask(
     free = _tile_pair_mask(prog, E[i_arr] & E[j_arr])
     free[np.flatnonzero(x)] = True
     return free
+
+
+def cut_repair(
+    prog: BfbProgram,
+    x0: np.ndarray,
+    cut_sets: list,
+    time_limit: float = 3.0,
+) -> Optional[np.ndarray]:
+    """Repair an incumbent whose solution graph is cyclic: re-solve the
+    program RESTRICTED to a small free set (the incumbent's support +
+    every cut variable + the endpoint neighborhood, hierarchy-closed)
+    with combinatorial cuts forbidding each cut set from being entirely
+    positive (indicator binaries, as solver.exact.solve_on_face). The
+    full-program face MILP is hopeless on hard noisy instances (HiGHS
+    finds nothing in 10s where the unrestricted solve already needed
+    its whole budget); this restricted version is LNS-window-sized and
+    closes in seconds. Returns the repaired full vector or None."""
+    x = np.asarray(x0, dtype=np.int64)
+    A_res, c_res = prog.residual_system()
+    G = prog.G.astype(np.float32)
+    ax = A_res @ x.astype(np.float64)
+    free = _endpoint_free_mask(prog, x, ax, c_res)
+    for s in cut_sets:
+        free[list(s)] = True
+    F = np.flatnonzero(free)
+    fpos = {v: k for k, v in enumerate(F)}
+    A_F = A_res[:, F]
+    c_shift = ax - A_F @ x[F]
+    keep_res = np.abs(A_F).sum(axis=1) > 0
+    sub_A = A_F[keep_res]
+    sub_c = c_res[keep_res] - c_shift[keep_res]
+    if G.shape[0]:
+        gx = (G @ x.astype(np.float32)).astype(np.float64)
+        G_F = G[:, F].astype(np.float64)
+        g_shift = gx - G_F @ x[F]
+        keep_g = np.abs(G_F).sum(axis=1) > 0
+        sub_G = G_F[keep_g]
+        sub_lb = prog.g_lb[keep_g] - g_shift[keep_g]
+        sub_ub = prog.g_ub[keep_g] - g_shift[keep_g]
+    else:
+        sub_G = np.zeros((0, len(F)))
+        sub_lb = np.zeros(0)
+        sub_ub = np.zeros(0)
+    # lift: [x_F | eps | z]; z binaries linked to the cut variables
+    try:
+        from scipy.optimize import Bounds, LinearConstraint, milp
+    except Exception:  # pragma: no cover
+        return None
+    nF = len(F)
+    E = sub_A.shape[0]
+    union_vars = sorted({v for s in cut_sets for v in s})
+    zpos = {v: k for k, v in enumerate(union_vars)}
+    Z = len(union_vars)
+    N = nF + E + Z
+    obj = np.zeros(N)
+    obj[nF : nF + E] = 1.0
+    M = sub_G.shape[0]
+    R = 2 * E + M + Z + len(cut_sets)
+    A_full = np.zeros((R, N))
+    lbs = np.empty(R)
+    ubs = np.empty(R)
+    A_full[0 : 2 * E : 2, :nF] = sub_A
+    A_full[1 : 2 * E : 2, :nF] = sub_A
+    eps_idx = nF + np.arange(E)
+    A_full[2 * np.arange(E), eps_idx] = 1.0
+    A_full[2 * np.arange(E) + 1, eps_idx] = -1.0
+    lbs[0 : 2 * E : 2] = sub_c
+    ubs[0 : 2 * E : 2] = np.inf
+    lbs[1 : 2 * E : 2] = -np.inf
+    ubs[1 : 2 * E : 2] = sub_c
+    if M:
+        A_full[2 * E : 2 * E + M, :nF] = sub_G
+        lbs[2 * E : 2 * E + M] = sub_lb
+        ubs[2 * E : 2 * E + M] = sub_ub
+    r = 2 * E + M
+    for v in union_vars:
+        A_full[r, fpos[v]] = 1.0
+        A_full[r, nF + E + zpos[v]] = -max(float(prog.x_ub[v]), 1.0)
+        lbs[r] = -np.inf
+        ubs[r] = 0.0
+        r += 1
+    for s in cut_sets:
+        for v in s:
+            A_full[r, nF + E + zpos[v]] = 1.0
+        lbs[r] = -np.inf
+        ubs[r] = len(s) - 1
+        r += 1
+    integrality = np.zeros(N)
+    integrality[:nF] = 1
+    integrality[nF + E :] = 1
+    bounds = Bounds(
+        np.zeros(N),
+        np.concatenate([prog.x_ub[F], np.full(E, np.inf), np.ones(Z)]),
+    )
+    res = milp(
+        c=obj,
+        constraints=LinearConstraint(A_full, lbs, ubs),
+        integrality=integrality,
+        bounds=bounds,
+        options={"time_limit": time_limit},
+    )
+    if res.x is None or res.status not in (0, 1):
+        return None
+    x_new = x.copy()
+    x_new[F] = np.round(res.x[:nF]).astype(np.int64)
+    if float(prog.hard_violation(x_new.astype(np.float64))) != 0.0:
+        return None
+    return x_new
 
 
 def lns_polish(

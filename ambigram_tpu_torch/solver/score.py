@@ -14,24 +14,29 @@ fractional targets: their hinges round, and two sums of the same hinges
 in different orders may differ in the last bit (about 1e-7 relative).
 
 `score_rows` is the wrapper of K1, the hand-written CUDA kernel
-(csrc/score_rows.cu) that replaces the Pallas `_score_kernel`;
-`chained_score` is the wrapper of K2 (csrc/chained_score.cu), which
-replaces the Pallas `_chained_kernel` of the benchmark chain. On a CUDA
-tensor each launches its kernel or raises; its plain PyTorch version
-(`score_rows_plain`, `chained_score_plain`) serves CPU tensors only.
+(csrc/score_rows.cu) that replaces the Pallas `_score_kernel`: on the
+int8 tensor cores when the program's rows are int8-exact (`k1_planes`),
+in f32 FFMA otherwise. `chained_score` is the wrapper of K2
+(csrc/chained_score.cu, wgmma), which replaces the Pallas
+`_chained_kernel` of the benchmark chain. On a CUDA tensor each launches
+its kernel or raises; its plain PyTorch version (`score_rows_plain`,
+`chained_score_plain`) serves CPU tensors only. `score_rows_int8_plain`
+mirrors the arithmetic of K1's int8 path on the CPU.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from ambigram_tpu.engine.ilp import BfbProgram
+from ambigram_tpu_torch.engine.ilp import BfbProgram
 
 PENALTY = 1024.0  # dominates any achievable residual for in-range programs
 _BIG = 3.0e38  # finite stand-in for +-inf bounds
@@ -79,15 +84,19 @@ class ScoringTensors:
         the search clips to x_ub, so that bound decides."""
         return self.int8_ok and self.x_ub_max <= 127.0
 
+    def h8_absmax(self) -> int:
+        """max |H8| (read from the tensor once, then cached)."""
+        if self._h8_absmax is None:
+            h = self.H8.to(torch.int16).abs()
+            self._h8_absmax = int(h.max()) if h.numel() else 0
+        return self._h8_absmax
+
     def int8_hx_exact(self) -> bool:
         """Whether every partial sum of an int8 row value x.H8[r], for
         candidates in [0, 127], stays below 2^24: then an f32 product of
         the int8 values is exact and equals the int32 one. Builders emit
         |H8| <= 2, so this holds for any Vp below about 33k."""
-        if self._h8_absmax is None:
-            h = self.H8.to(torch.int16).abs()
-            self._h8_absmax = int(h.max()) if h.numel() else 0
-        return self._h8_absmax * 127 * self.H8.shape[-1] < 2**24
+        return self.h8_absmax() * 127 * self.H8.shape[-1] < 2**24
 
     def columns(self) -> torch.Tensor:
         """H.T as a contiguous [..., Vp, Rows] tensor (cached)."""
@@ -305,6 +314,25 @@ def score_batch(st: ScoringTensors, x: torch.Tensor) -> torch.Tensor:
     return score_from_hx(st, matmul_f32(x, st.H.t()))
 
 
+def k1_planes(st: ScoringTensors) -> int:
+    """How K1 reads `st`: 1 or 2 u8 planes of the candidates on the int8
+    path, 0 for the f32 path. The int8 path needs rows that are
+    int8-exact (then H = w * H8 row-wise, w in {0, 0.5, 1, 1024}), Rows
+    and Vp in multiples of 64, candidates below 2^16 (the box x_ub) and
+    every row value below 2^24: ceil(x_ub_max) * max|H8| * Vp < 2^24,
+    so hx_int converts to f32 exactly and hx = w * hx_int is bitwise the
+    f32 product of H. Decided from the representation before launch."""
+    if not st.int8_ok:
+        return 0
+    rows, vp = st.H8.shape[-2:]
+    x_max = math.ceil(st.x_ub_max)
+    if rows % 64 or vp % 64 or x_max >= 2**16:
+        return 0
+    if x_max * st.h8_absmax() * vp >= 2**24:
+        return 0
+    return 1 if x_max < 2**8 else 2
+
+
 def score_rows_plain(
     st: ScoringTensors, X: torch.Tensor, want_hx: bool = False
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -319,7 +347,33 @@ def score_rows_plain(
     return score_from_hx(st, hx), (hx if want_hx else None)
 
 
+def score_rows_int8_plain(
+    st: ScoringTensors, X: torch.Tensor, want_hx: bool = False
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The arithmetic of K1's int8 path in plain PyTorch, on the CPU
+    (torch has no int32 matmul on CUDA): the candidates truncated to u8
+    planes (the low byte, and the high byte when `k1_planes` says 2),
+    each plane's int32 product with H8, hx = w * float(256 hi + lo), then
+    the f32 hinges of `score_from_hx`. Bitwise equal to
+    `score_rows_plain` wherever `k1_planes` is not 0."""
+    planes = k1_planes(st)
+    if not planes:
+        raise ValueError("the rows are not int8-exact for K1's int8 path (k1_planes is 0)")
+    if X.dim() == 3:
+        outs = [score_rows_int8_plain(st.case(g), X[g], want_hx) for g in range(X.shape[0])]
+        scores = torch.stack([s for s, _ in outs])
+        return scores, (torch.stack([h for _, h in outs]) if want_hx else None)
+    xi = torch.trunc(X).to(torch.int32)
+    H8t = st.H8.to(torch.int32).t()
+    hx_int = torch.zeros((X.shape[0], H8t.shape[1]), dtype=torch.int32, device=X.device)
+    for p in range(planes):
+        hx_int += (256**p) * torch.matmul((xi >> (8 * p)) & 255, H8t)
+    hx = st.w * hx_int.to(torch.float32)
+    return score_from_hx(st, hx), (hx if want_hx else None)
+
+
 _K1_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_K1_I8_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def _k1_library() -> ctypes.CDLL:
@@ -331,6 +385,10 @@ def _k1_library() -> ctypes.CDLL:
         lib.score_rows_launch.restype = ctypes.c_int
         lib.score_rows_num_tiles.argtypes = [ctypes.c_int]
         lib.score_rows_num_tiles.restype = ctypes.c_int
+        lib.score_rows_i8_launch.argtypes = _K1_I8_ARGTYPES
+        lib.score_rows_i8_launch.restype = ctypes.c_int
+        lib.score_rows_i8_scratch_bytes.argtypes = [ctypes.c_int] * 5
+        lib.score_rows_i8_scratch_bytes.restype = ctypes.c_longlong
         lib.score_rows_error_string.argtypes = [ctypes.c_int]
         lib.score_rows_error_string.restype = ctypes.c_char_p
     return lib
@@ -346,9 +404,12 @@ def score_rows(
     takes X [G, B, Vp] and scores every case in one launch: ([G, B],
     [G, B, Rows] or None), bitwise equal to G single-case calls.
 
-    CUDA tensors launch K1 (csrc/score_rows.cu) and raise on any fault;
-    CPU tensors take the plain version. `score_rows.launches` counts the
-    kernel's launches."""
+    CUDA tensors launch K1 (csrc/score_rows.cu) and raise on any fault:
+    its int8 tensor-core path (H8 and w) when `k1_planes(st)` allows it,
+    else its f32 path (H). X must hold the search's candidates: integers
+    in [0, x_ub]. CPU tensors take the plain version.
+    `score_rows.launches` counts the kernel's launches, and
+    `score_rows.int8_launches` and `score_rows.f32_launches` each path's."""
     H, lb, ub = st.H, st.lb, st.ub
     if X.dim() not in (2, 3) or H.dim() != X.dim() or X.shape[-1] != H.shape[-1] or (
         X.dim() == 3 and X.shape[0] != H.shape[0]
@@ -376,35 +437,70 @@ def score_rows(
     hx = torch.empty(lead + (rows,), dtype=torch.float32, device=X.device) if want_hx else None
     if B == 0 or cases == 0:
         return scores, hx
-    partial = torch.empty(
-        (cases, lib.score_rows_num_tiles(rows), B), dtype=torch.float32, device=X.device
-    )
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream(X.device).cuda_stream
-        err = lib.score_rows_launch(
-            H.data_ptr(),
-            lb.data_ptr(),
-            ub.data_ptr(),
-            X.data_ptr(),
-            hx.data_ptr() if hx is not None else None,
-            partial.data_ptr(),
-            scores.data_ptr(),
-            cases,
-            B,
-            rows,
-            Vp,
-            stream,
-        )
+    planes = k1_planes(st)
+    dev = X.device
+    if planes and (
+        st.H8.shape != H.shape
+        or st.w.shape != lb.shape
+        or st.H8.device != dev
+        or st.w.device != dev
+        or not (st.H8.is_contiguous() and st.w.is_contiguous())
+    ):
+        raise ValueError("H8 and w must match H and lb, contiguous, on X's device")
+    with torch.cuda.device(dev) if dev.index != torch.cuda.current_device() else contextlib.nullcontext():
+        stream = torch.cuda.current_stream().cuda_stream
+        if planes:
+            scratch = torch.empty(
+                lib.score_rows_i8_scratch_bytes(cases, B, rows, Vp, planes), dtype=torch.uint8, device=dev
+            )
+            err = lib.score_rows_i8_launch(
+                st.H8.data_ptr(),
+                st.w.data_ptr(),
+                lb.data_ptr(),
+                ub.data_ptr(),
+                X.data_ptr(),
+                scratch.data_ptr(),
+                hx.data_ptr() if hx is not None else None,
+                scores.data_ptr(),
+                cases,
+                B,
+                rows,
+                Vp,
+                planes,
+                stream,
+            )
+        else:
+            partial = torch.empty((cases, lib.score_rows_num_tiles(rows), B), dtype=torch.float32, device=dev)
+            err = lib.score_rows_launch(
+                H.data_ptr(),
+                lb.data_ptr(),
+                ub.data_ptr(),
+                X.data_ptr(),
+                hx.data_ptr() if hx is not None else None,
+                partial.data_ptr(),
+                scores.data_ptr(),
+                cases,
+                B,
+                rows,
+                Vp,
+                stream,
+            )
     if err != 0:
         raise RuntimeError(
             "score_rows kernel launch failed: %s (cudaError %d)"
             % (lib.score_rows_error_string(err).decode(), err)
         )
     score_rows.launches += 1
+    if planes:
+        score_rows.int8_launches += 1
+    else:
+        score_rows.f32_launches += 1
     return scores, hx
 
 
 score_rows.launches = 0
+score_rows.int8_launches = 0
+score_rows.f32_launches = 0
 
 
 # ------------------------------------------------- the benchmark chain (K2)
@@ -441,7 +537,7 @@ def chained_score_plain(
     return (acc, X) if want_x else acc
 
 
-_K2_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_K2_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def _k2_library() -> ctypes.CDLL:
@@ -458,12 +554,12 @@ def _k2_library() -> ctypes.CDLL:
     return lib
 
 
-K2_BLOCK_B = (32, 64)  # candidates per CTA the kernel is built for
+K2_BLOCK_B = (64, 128)  # candidates per CTA the kernel is built for (1 or 2 consumer warpgroups)
 K2_MAX_SMEM = 232448  # shared memory one H100 block may use
 
 
 def chained_score(
-    st: ScoringTensors, X: torch.Tensor, iters: int, block_b: int = 64, want_x: bool = False
+    st: ScoringTensors, X: torch.Tensor, iters: int, block_b: int = 128, want_x: bool = False
 ):
     """The benchmark chain on candidates X [B, Vp] for `iters` rounds:
     the function of the Pallas `_chained_kernel` (ambigram_tpu/solver/
@@ -472,9 +568,12 @@ def chained_score(
 
     CUDA tensors launch K2 (csrc/chained_score.cu): one CTA per
     `block_b` candidates, so B must be a multiple of it; Vp a multiple
-    of 128 and Rows of 256, as `scoring_tensors` pads them. CPU tensors
-    take the plain version. `chained_score.launches` counts the kernel's
-    launches."""
+    of 128 and Rows of 256, as `scoring_tensors` pads them. The kernel
+    reads H8 [Rows, Vp] as it is, through a TMA tensor map; the wrapper
+    packs the row bounds as (lb_raw, ub_raw, w, 0) per row and hands
+    over the 128 head lanes of X as a [B, 128] buffer the kernel updates.
+    CPU tensors take the plain version. `chained_score.launches` counts
+    the kernel's launches."""
     if not st.use_int8:
         raise ValueError("the chain runs on the int8 representation (use_int8 is False)")
     if X.dim() != 2 or X.shape[1] != st.H8.shape[1] or X.dtype != torch.float32:
@@ -506,25 +605,22 @@ def chained_score(
         raise ValueError(
             "block_b %d at Vp %d needs %d bytes of shared memory (max %d)" % (block_b, Vp, smem, K2_MAX_SMEM)
         )
-    # H8 as 4 int8 per int32 word (byte j of word k is column 4k + j),
-    # transposed to [Vp/4, Rows] so a tile of rows is one contiguous load
-    HTw = st.H8.contiguous().view(torch.int32).t().contiguous()
-    lb, ub, w, x_ub = (t.contiguous() for t in (st.lb_raw, st.ub_raw, st.w, st.x_ub))
-    X_out = torch.empty_like(X) if want_x else None
+    H8 = st.H8.contiguous()
+    bounds = torch.stack([st.lb_raw, st.ub_raw, st.w, torch.zeros_like(st.w)], dim=1).contiguous()
+    x_ub = st.x_ub.contiguous()
+    head = X[:, :_HEAD].clone(memory_format=torch.contiguous_format)  # the kernel updates it
     blocks = torch.empty(B // block_b, dtype=torch.float32, device=X.device)
     checksum = torch.zeros((), dtype=torch.float32, device=X.device)
     if B == 0:
-        return (checksum, X_out) if want_x else checksum
+        return (checksum, X.clone()) if want_x else checksum
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         err = lib.chained_score_launch(
-            HTw.data_ptr(),
-            lb.data_ptr(),
-            ub.data_ptr(),
-            w.data_ptr(),
+            H8.data_ptr(),
+            bounds.data_ptr(),
             x_ub.data_ptr(),
             X.data_ptr(),
-            X_out.data_ptr() if X_out is not None else None,
+            head.data_ptr(),
             blocks.data_ptr(),
             checksum.data_ptr(),
             B,
@@ -536,11 +632,18 @@ def chained_score(
         )
     if err != 0:
         raise RuntimeError(
-            "chained_score kernel launch failed: %s (cudaError %d)"
-            % (lib.chained_score_error_string(err).decode(), err)
+            "chained_score kernel launch failed: %s (error %d)" % (lib.chained_score_error_string(err).decode(), err)
         )
     chained_score.launches += 1
-    return (checksum, X_out) if want_x else checksum
+    if want_x:
+        return checksum, torch.cat([head, X[:, _HEAD:]], dim=1)
+    return checksum
 
 
 chained_score.launches = 0
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch counts to 0."""
+    score_rows.launches = score_rows.int8_launches = score_rows.f32_launches = 0
+    chained_score.launches = 0

@@ -26,9 +26,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ambigram_tpu.engine.ilp import BfbProgram
-from ambigram_tpu.solver.exact import SolveResult
-from ambigram_tpu.utils.profiling import GLOBAL
+from ambigram_tpu_torch.engine.ilp import BfbProgram
+from ambigram_tpu_torch.solver.exact import SolveResult
 from ambigram_tpu_torch.solver.host import (
     _seed_case,
     certified_bound,
@@ -38,6 +37,7 @@ from ambigram_tpu_torch.solver.host import (
 from ambigram_tpu_torch.parallel.mesh import stack_cases
 from ambigram_tpu_torch.solver.score import ScoringTensors, score_rows
 from ambigram_tpu_torch.solver.sweeps import sweep_delta, sweep_moves, sweep_moves3
+from ambigram_tpu_torch.utils.profiling import GLOBAL
 
 _KICK_SIGNS = (-2.0, -1.0, 1.0, 2.0)
 _N_KICKS = 4

@@ -27,12 +27,12 @@ from ambigram_tpu.engine.pipeline import run_bfb as reference_run_bfb
 from ambigram_tpu.parallel import mesh as jmesh
 from ambigram_tpu.solver import search as jsearch
 from ambigram_tpu.solver.exact import solve_exact
-from ambigram_tpu.utils.profiling import GLOBAL
 from ambigram_tpu_torch import cli
 from ambigram_tpu_torch.engine import pipeline
 from ambigram_tpu_torch.parallel.mesh import stack_cases
 from ambigram_tpu_torch.solver import host, search, sweeps
 from ambigram_tpu_torch.solver.score import score_rows
+from ambigram_tpu_torch.utils.profiling import GLOBAL
 from test_e2e_bfb import GOLDEN_EGFR6
 from test_solver import _random_prog
 from test_torch_score import LEAVES, STATIC, port_from_jax

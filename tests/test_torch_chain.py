@@ -103,7 +103,7 @@ def test_int8_score_batch_refuses_an_inexact_product():
     with pytest.raises(ValueError, match="2\\^24"):
         tscore.score_batch(st, torch.zeros((2, Vp)))
     with pytest.raises(ValueError, match="2\\^24"):
-        tscore.chained_score(st, torch.zeros((64, Vp)), 1)
+        tscore.chained_score(st, torch.zeros((64, Vp)), 1, block_b=64)
 
 
 @pytest.mark.parametrize("it", [0, 3, 199])

@@ -9,20 +9,20 @@ JAX is not installed:
 """
 
 import os
-import sys
 
 import numpy as np
 import pytest
 import torch
 
-from ambigram_tpu.engine.pipeline import extract_programs
-from ambigram_tpu.scripts.simulate import simulate_bfb_case, write_case
 from ambigram_tpu_torch import bench
+from ambigram_tpu_torch.engine.pipeline import extract_programs
 from ambigram_tpu_torch.parallel.mesh import stack_cases
+from ambigram_tpu_torch.scripts.simulate import simulate_bfb_case, write_case
 from ambigram_tpu_torch.solver import search
 from ambigram_tpu_torch.solver.score import (
     chained_score,
     chained_score_plain,
+    k1_planes,
     score_batch,
     score_rows,
     score_rows_plain,
@@ -30,7 +30,6 @@ from ambigram_tpu_torch.solver.score import (
 )
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 pytestmark = pytest.mark.cuda
 
@@ -49,20 +48,22 @@ def simulated_prog(tmp_path, seed, n_segments, **kw):
 
 @pytest.mark.parametrize("B", [1, 32, 511, 1000])
 def test_score_rows_kernel_matches_plain(cuda_device, tmp_path, B):
-    """K1 against its plain version for ragged batches of sparse
-    candidates on a noise-free case (integer targets, scores below 2^22:
-    every f32 sum is exact), so hx and scores are bitwise equal."""
+    """K1 (its int8 tensor-core path) against its plain version for
+    ragged batches of sparse candidates on a noise-free case (integer
+    targets, scores below 2^22: every f32 sum is exact), so hx and scores
+    are bitwise equal."""
     prog = simulated_prog(tmp_path, seed=2, n_segments=24, mode="nested")
     st = scoring_tensors(prog, cuda_device)
+    assert k1_planes(st) == 1
     rng = np.random.default_rng(B)
     Vp = st.H.shape[1]
     X = np.zeros((B, Vp), dtype=np.float32)
     X[:, : prog.num_vars] = np.minimum(rng.integers(0, 3, size=(B, prog.num_vars)), prog.x_ub)
     X *= rng.random((B, Vp)) < 0.05
     X = torch.as_tensor(X).to(cuda_device)
-    before = score_rows.launches
+    before, before_i8 = score_rows.launches, score_rows.int8_launches
     s_k, hx_k = score_rows(st, X, want_hx=True)
-    assert score_rows.launches == before + 1
+    assert score_rows.launches == before + 1 and score_rows.int8_launches == before_i8 + 1
     s_p, hx_p = score_rows_plain(st, X, want_hx=True)
     torch.cuda.synchronize()
     assert float(s_p.max()) < 2.0**22
@@ -70,6 +71,45 @@ def test_score_rows_kernel_matches_plain(cuda_device, tmp_path, B):
     assert torch.equal(s_k, s_p)
     s_only, no_hx = score_rows(st, X)
     assert no_hx is None and torch.equal(s_only, s_k)
+
+
+@pytest.mark.parametrize("path", ["f32", "int8_two_planes"])
+def test_score_rows_kernel_other_paths_match_plain(cuda_device, tmp_path, path):
+    """K1's f32 FFMA path on rows that are not int8-exact (a 0.25
+    coefficient), and its int8 path with two candidate planes (a box past
+    255): hx bitwise equal to the plain version. The scores are bitwise
+    equal wherever they stay on the exact f32 lattice (below 2^23); the
+    large loop counts push some past it, where the two versions' f32 row
+    sums round in different orders (rel 1e-6)."""
+    import dataclasses
+
+    prog = simulated_prog(tmp_path, seed=2, n_segments=24, mode="nested")
+    rng = np.random.default_rng(17)
+    if path == "f32":
+        prog = dataclasses.replace(prog, A_fbi=prog.A_fbi * 0.5)
+    else:
+        prog.x_ub = prog.x_ub.copy()
+        prog.x_ub[len(prog.pairs):] = 400
+    st = scoring_tensors(prog, cuda_device)
+    assert k1_planes(st) == (0 if path == "f32" else 2)
+    B, Vp, T = 300, st.H.shape[1], len(prog.pairs)
+    X = np.zeros((B, Vp), dtype=np.float32)
+    X[:, : prog.num_vars] = np.minimum(rng.integers(0, 2, size=(B, prog.num_vars)), prog.x_ub)
+    X *= rng.random((B, Vp)) < 0.05
+    if path != "f32":
+        X[np.arange(B), T + rng.integers(0, T, size=B)] = rng.integers(256, 401, size=B)
+    X = torch.as_tensor(X).to(cuda_device)
+    counter = "f32_launches" if path == "f32" else "int8_launches"
+    before = getattr(score_rows, counter)
+    s_k, hx_k = score_rows(st, X, want_hx=True)
+    assert getattr(score_rows, counter) == before + 1
+    s_p, hx_p = score_rows_plain(st, X, want_hx=True)
+    torch.cuda.synchronize()
+    assert torch.equal(hx_k, hx_p)
+    exact = s_p < 2.0**23
+    assert int(exact.sum()) >= 1
+    assert torch.equal(s_k[exact], s_p[exact])
+    assert float(((s_k - s_p).abs() / s_p.abs().clamp(min=1.0)).max()) <= 1e-6
 
 
 def test_search_on_cuda_follows_the_cpu_trajectory(cuda_device, monkeypatch):
@@ -107,16 +147,14 @@ def test_s48_suite_on_card(cuda_device, tmp_path):
 def demo_int8_prog(n_segments):
     """The bench's demo program at `n_segments` (integer targets), with
     the loop box capped at 127 as the bench caps it."""
-    if ROOT not in sys.path:
-        sys.path.insert(0, ROOT)
-    from __graft_entry__ import _demo_program
+    from ambigram_tpu_torch.bench import _demo_program
 
     prog = _demo_program(n_segments)
     prog.x_ub = np.minimum(prog.x_ub, 127)
     return prog
 
 
-@pytest.mark.parametrize("block_b", [32, 64])
+@pytest.mark.parametrize("block_b", [64, 128])
 def test_chained_score_kernel_matches_plain(cuda_device, block_b):
     """K2 against its plain version: on a small program every sum is
     exact; at the bench width (3840 x 1152) the scores pass 2^24 but both

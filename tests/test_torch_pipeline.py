@@ -15,9 +15,9 @@ import pytest
 import torch
 
 from ambigram_tpu.engine.pipeline import run_bfb as reference_run_bfb
-from ambigram_tpu.utils.profiling import GLOBAL
 from ambigram_tpu_torch import cli
 from ambigram_tpu_torch.engine import pipeline
+from ambigram_tpu_torch.utils.profiling import GLOBAL
 from test_e2e_bfb import GOLDEN_EGFR6
 from test_readme_trx_goldens import C1_GOLDEN_STAGE2, C2_GOLDEN, I1_GOLDEN, I2_GOLDEN
 
@@ -117,13 +117,20 @@ def test_run_bfb_on_cuda_without_card_raises():
         pipeline.run_bfb(EGFR6, solver="auto", device="cuda")
 
 
+# the port keeps its own copy of everything it needs: it imports neither
+# jax nor any module of the JAX package, nor the repo's __graft_entry__
+FORBIDDEN = ("jax", "ambigram_tpu", "__graft_entry__")
+
+
 def test_port_main_path_loads_no_jax(tmp_path):
     code = (
         "import sys\n"
         "from ambigram_tpu_torch import cli\n"
         "res = cli.run(['--op', 'bfb', '--in_lh', %r, '--solver', 'device', '--device', 'cpu'])\n"
         "assert res.path_strings[0] == %r, res.path_strings\n"
-        "print('JAX_LOADED=%%s' %% ('jax' in sys.modules))\n" % (EGFR6, GOLDEN_EGFR6)
+        "print('JAX_LOADED=%%s' %% ('jax' in sys.modules))\n"
+        "print('LOADED=%%s' %% ','.join(sorted(m for m in sys.modules if m.split('.')[0] in %r)))\n"
+        % (EGFR6, GOLDEN_EGFR6, FORBIDDEN)
     )
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
@@ -136,17 +143,17 @@ def test_port_main_path_loads_no_jax(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "JAX_LOADED=False" in proc.stdout
+    assert "LOADED=\n" in proc.stdout, proc.stdout[-2000:]
     assert proc.stdout.splitlines()[0] == GOLDEN_EGFR6
 
 
-FORBIDDEN = (
-    "jax",
-    "ambigram_tpu.solver.score",
-    "ambigram_tpu.solver.search",
-    "ambigram_tpu.solver.lns",
-    "ambigram_tpu.parallel",
-    "ambigram_tpu.utils.cache",
-)
+def port_sources():
+    """Every Python source of the port, with chip_smoke.py and the
+    card-only test file, which run where JAX is not installed."""
+    paths = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tests", "test_torch_cuda.py")]
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "ambigram_tpu_torch")):
+        paths += [os.path.join(dirpath, fn) for fn in sorted(files) if fn.endswith(".py")]
+    return paths
 
 
 def test_port_sources_import_nothing_that_loads_jax():
@@ -154,19 +161,42 @@ def test_port_sources_import_nothing_that_loads_jax():
     import ast
 
     offenders = []
-    for dirpath, _, files in os.walk(os.path.join(ROOT, "ambigram_tpu_torch")):
-        for fn in sorted(f for f in files if f.endswith(".py")):
-            path = os.path.join(dirpath, fn)
-            with open(path) as f:
-                tree = ast.parse(f.read())
-            for node in ast.walk(tree):
-                if isinstance(node, ast.Import):
-                    names = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and node.module:
-                    names = [node.module]
-                else:
+    for path in port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                if node.level:
+                    offenders.append("%s:%d has a relative import" % (path, node.lineno))
                     continue
-                for name in names:
-                    if any(name == m or name.startswith(m + ".") for m in FORBIDDEN):
-                        offenders.append("%s:%d imports %s" % (path, node.lineno, name))
+                names = [node.module]
+            else:
+                continue
+            for name in names:
+                if any(name == m or name.startswith(m + ".") for m in FORBIDDEN):
+                    offenders.append("%s:%d imports %s" % (path, node.lineno, name))
+    assert len(port_sources()) > 20
     assert not offenders, offenders
+
+
+def test_bench_workload_loads_no_module_of_the_jax_package(tmp_path):
+    """The bench builds its workload from the port's own copy of the
+    demo program."""
+    code = (
+        "import sys\n"
+        "from ambigram_tpu_torch import bench\n"
+        "prog, st, X = bench.build_workload(batch=64)\n"
+        "assert X.shape == (64, 1152) and tuple(st.H8.shape) == (3840, 1152)\n"
+        "print('LOADED=%%s' %% ','.join(sorted(m for m in sys.modules if m.split('.')[0] in %r)))\n"
+        % (FORBIDDEN,)
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED=\n" in proc.stdout, proc.stdout[-2000:]

@@ -144,7 +144,7 @@ def test_solve_device_matches_exact_random(seed, small_search):
 
 
 def test_solve_device_counts_and_phases(small_search):
-    from ambigram_tpu.utils.profiling import GLOBAL
+    from ambigram_tpu_torch.utils.profiling import GLOBAL
 
     GLOBAL.reset()
     search.solve_device(_egfr_prog(), device="cpu")
