@@ -20,8 +20,10 @@ program.
 AMBIGRAM_BENCH_SUITE picks the secondary legs, which go to stderr:
 "1" (default) the 4xS48 suite (device, auto and exact modes) and the
 16-case batch (`run_bfb_many` against a serial exact loop); "0" none;
-"kernel" the K2 layout sweep. The JAX bench's other modes (the scaling
-proxy, "big", "sc") are not yet ported and exit with code 2.
+"kernel" the K2 layout sweep; "sc" the single-cell batch
+(`run_sc_bfb_many` against a serial per-sample loop). The JAX bench's
+other modes (the scaling proxy, "big") are not yet ported and exit with
+code 2.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # H100 SXM dense int8 tensor-core peak (NVIDIA H100 data sheet, without
 # sparsity): the roofline the int8 block is stated against
 PEAK_INT8_TOPS = 1979.0
-SUITE_MODES = ("0", "1", "kernel")
+SUITE_MODES = ("0", "1", "kernel", "sc")
 
 
 def _demo_program(n_segments: int = 24):
@@ -327,13 +329,94 @@ def bench_batch() -> dict:
     }
 
 
-def _secondary(metric: str, fn) -> None:
+def sc_samples(workdir: str, n_samples: int = 6, n_clones: int = 3, n_segments: int = 24):
+    """The JAX bench's single-cell samples: K clones each, seeds 700,
+    701, ..., chain and star topologies alternating, the all-pairs
+    evolution default; returns [{"lh_paths", "edges"}]."""
+    from ambigram_tpu_torch.scripts.simulate import simulate_sc_case, write_sc_clones
+
+    samples = []
+    for s in range(n_samples):
+        sc = simulate_sc_case(
+            seed=700 + s, n_clones=n_clones, n_segments=n_segments, topology="chain" if s % 2 == 0 else "star"
+        )
+        names, _ = write_sc_clones(sc, os.path.join(workdir, "s%d_c" % s))
+        samples.append({"lh_paths": ",".join(names), "edges": ""})
+    return samples
+
+
+def bench_sc(n_samples: int = 6, n_clones: int = 3, n_segments: int = 24) -> dict:
+    """Single-cell batch throughput: `run_sc_bfb_many(solver="auto")`
+    over simulated K-clone samples on the card (the block programs are
+    the largest the engine builds, V = K * 2T) against the serial
+    per-sample loop (one `run_sc_bfb` per sample with a 15 s exact
+    budget per block program, standing in for one process per sample).
+    Before the clock the CUDA context starts and K1 is built, reported
+    as `compile_seconds` (the JAX leg warms its XLA compiles there)."""
+    import torch
+
+    from ambigram_tpu_torch.engine.sc import extract_sc_programs, run_sc_bfb, run_sc_bfb_many
+    from ambigram_tpu_torch.solver.exact import solve_exact
+    from ambigram_tpu_torch.solver.score import _k1_library
+
+    _require_cuda()
+    device = "cuda"
+    td = tempfile.mkdtemp(prefix="ambigram_sc_bench_")
+    try:
+        samples = sc_samples(td, n_samples, n_clones, n_segments)
+        t0 = time.perf_counter()
+        torch.zeros(1, device=device)
+        _k1_library()
+        compile_seconds = round(time.perf_counter() - t0, 1)
+
+        def solved(r) -> bool:
+            return bool(r.path_strings) and all(any(c) for c in r.path_strings)
+
+        t0 = time.perf_counter()
+        batch = run_sc_bfb_many(samples, solver="auto", device=device)
+        batch_secs = time.perf_counter() - t0
+        batch_ok = sum(1 for r in batch if solved(r))
+
+        t0 = time.perf_counter()
+        serial_ok = 0
+        for s in samples:
+            presolved = [
+                solve_exact(pr, time_limit=15.0) if pr is not None else None
+                for pr in extract_sc_programs(s["lh_paths"], s["edges"])
+            ]
+            r = run_sc_bfb(s["lh_paths"], solver="exact", device=device, presolved=presolved, edges=s["edges"])
+            serial_ok += solved(r)
+        serial_secs = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
+    return {
+        "cases": "%dx sc (K=%d, S=%d) chain/star" % (n_samples, n_clones, n_segments),
+        "block_vars": n_clones * n_segments * (n_segments + 1),
+        "compile_seconds": compile_seconds,
+        "batch": {
+            "seconds": round(batch_secs, 1),
+            "samples_per_min": round(60.0 * n_samples / batch_secs, 2),
+            "solved": batch_ok,
+        },
+        "serial": {
+            "seconds": round(serial_secs, 1),
+            "samples_per_min": round(60.0 * n_samples / serial_secs, 2),
+            "solved": serial_ok,
+        },
+        "batch_speedup": round(serial_secs / batch_secs, 2) if batch_secs else 0.0,
+    }
+
+
+def _secondary(metric: str, fn) -> bool:
     """Run one secondary leg; its JSON line (or its failure) goes to
-    stderr so stdout stays the single result line."""
+    stderr so stdout stays the single result line. Returns whether the
+    leg finished, so that a failed leg makes the bench exit non-zero."""
     try:
         print(json.dumps({"metric": metric, **fn()}), file=sys.stderr, flush=True)
+        return True
     except Exception as e:  # a failed leg must not lose the others
         print("%s failed: %r" % (metric, e), file=sys.stderr, flush=True)
+        return False
 
 
 def main() -> int:
@@ -381,12 +464,13 @@ def main() -> int:
     # the result line goes out before the secondary legs, which take
     # minutes: a time limit hit during them must not lose it
     print(json.dumps(payload), flush=True)
-    if suite_mode == "1":
-        _secondary("suite_seconds_large_cases", bench_suite)
-        _secondary("batch_throughput_cases_per_min", bench_batch)
-    elif suite_mode == "kernel":
-        _secondary("kernel_layout_sweep", lambda: bench_kernel_sweep(st, X))
-    return 0
+    legs = {
+        "1": [("suite_seconds_large_cases", bench_suite), ("batch_throughput_cases_per_min", bench_batch)],
+        "kernel": [("kernel_layout_sweep", lambda: bench_kernel_sweep(st, X))],
+        "sc": [("sc_batch_throughput", bench_sc)],
+    }.get(suite_mode, [])
+    finished = [_secondary(metric, fn) for metric, fn in legs]
+    return 0 if all(finished) else 1
 
 
 if __name__ == "__main__":

@@ -1,14 +1,20 @@
 """Command-line interface of the PyTorch port.
 
     python -m ambigram_tpu_torch.cli --op bfb --in_lh case.lh [--solver auto] [--device cuda]
+    python -m ambigram_tpu_torch.cli --op sc_bfb --in_lh a.lh,b.lh,c.lh [--edges a.lh:b.lh,b.lh:c.lh]
     python -m ambigram_tpu_torch.cli --op bfb --manifest --in_lh cases.manifest [--result_store DIR]
+    python -m ambigram_tpu_torch.cli --op check --in_lh case.lh [--juncdb db.junc] [--out_lh balanced.lh]
+    python -m ambigram_tpu_torch.cli --op solve --in_lh balanced.lh [--hap haps.txt]
 
 The options are the JAX package's (`build_parser`, `_boolish` and
 `parse_manifest` are copies of those in ambigram_tpu/cli.py) plus
 `--device`, where the search runs (default `cuda`; a CUDA device
-without a card is an error, never a silent CPU run). `--op bfb` is
-ported, on one case and on a manifest of bulk cases (`run_bfb_many`);
-the other ops and single-cell (`sc:`) manifest lines exit non-zero.
+without a card is an error, never a silent CPU run). Every op is
+ported: `bfb` on one case, `sc_bfb` on the clones of one sample, a
+manifest of bulk cases (`run_bfb_many`) and single-cell `sc:` samples
+(`run_sc_bfb_many`), and the legacy balancer (`check`) and traversal
+(`solve`) pipeline, which runs on the host only (`--device` does not
+apply to it).
 """
 
 from __future__ import annotations
@@ -194,8 +200,10 @@ def parse_manifest(path: str):
 
 
 def run(argv=None):
-    """Parse `argv` and run it: the BfbResult (a list of them for a
-    manifest), or None after an input error (reported on stderr)."""
+    """Parse `argv` and run it: the op's result (a BfbResult for `bfb`,
+    an ScBfbResult for `sc_bfb`, a list of them for a manifest, the
+    BalanceResult for `check`, the Traverser for `solve`), or None after
+    an input error (reported on stderr)."""
     args = build_parser().parse_args(argv)
     try:
         return _dispatch(args)
@@ -207,54 +215,147 @@ def run(argv=None):
 
 
 def _run_manifest(args):
-    """Every bulk case of the manifest through `run_bfb_many`, with
-    per-case checkpoints in --result_store; a `## <lh>: ...` summary
-    line per case on stderr, as the JAX package's CLI prints."""
+    """Every bulk case of the manifest through `run_bfb_many`, then
+    every single-cell sample through `run_sc_bfb_many`, with per-case
+    checkpoints in --result_store; a `## ...` summary line per case on
+    stderr, as the JAX package's CLI prints. Returns the bulk results
+    followed by the sc results."""
     from ambigram_tpu_torch.engine.pipeline import run_bfb_many
+    from ambigram_tpu_torch.engine.sc import run_sc_bfb_many
 
     bulk, sc = parse_manifest(args.in_lh)
-    if sc:
-        print(
-            "error: single-cell (sc:) manifest lines are not yet ported to ambigram_tpu_torch",
-            file=sys.stderr,
-        )
-        return None
-    if not bulk:
+    if not bulk and not sc:
         print("error: manifest %s lists no cases" % args.in_lh, file=sys.stderr)
         return None
-    results = run_bfb_many(
-        [c["lh"] for c in bulk],
-        juncs_paths=[c["juncs"] for c in bulk],
-        juncs_info=_boolish(args.junc_info),
-        is_reversed=_boolish(args.is_reversed),
-        solver=args.solver,
-        device=args.device,
-        out=sys.stdout,
-        result_store=args.result_store or None,
-        ledger_dir=None if args.no_ledgers else ".",
-    )
-    for c, r in zip(bulk, results):
-        print(
-            "## %s: %d path(s), ilp_error %.4f%s"
-            % (
-                c["lh"],
-                sum(1 for p in r.path_strings if p),
-                r.ilp_error,
-                "" if r.is_resolved else " [unresolved]",
-            ),
-            file=sys.stderr,
+    store = args.result_store or None
+    ledger_dir = None if args.no_ledgers else "."
+    results = []
+    if bulk:
+        bulk_res = run_bfb_many(
+            [c["lh"] for c in bulk],
+            juncs_paths=[c["juncs"] for c in bulk],
+            juncs_info=_boolish(args.junc_info),
+            is_reversed=_boolish(args.is_reversed),
+            solver=args.solver,
+            device=args.device,
+            out=sys.stdout,
+            result_store=store,
+            ledger_dir=ledger_dir,
         )
+        for c, r in zip(bulk, bulk_res):
+            print(
+                "## %s: %d path(s), ilp_error %.4f%s"
+                % (
+                    c["lh"],
+                    sum(1 for p in r.path_strings if p),
+                    r.ilp_error,
+                    "" if r.is_resolved else " [unresolved]",
+                ),
+                file=sys.stderr,
+            )
+        results += bulk_res
+    if sc:
+        sc_res = run_sc_bfb_many(
+            sc,
+            juncs_info=_boolish(args.junc_info),
+            is_reversed=_boolish(args.is_reversed),
+            solver=args.solver,
+            device=args.device,
+            out=sys.stdout,
+            result_store=store,
+            ledger_dir=ledger_dir,
+        )
+        for s, r in zip(sc, sc_res):
+            print(
+                "## sc:%s: %d clone path list(s)" % (s["lh_paths"], len(r.path_strings)),
+                file=sys.stderr,
+            )
+        results += sc_res
     print("## manifest complete: %d case(s)" % len(results), file=sys.stderr)
     return results
+
+
+def _run_check(args):
+    """The legacy balancer (`--op check`): reachability report, balanced
+    copy numbers, the balanced LH file. Returns the BalanceResult."""
+    from ambigram_tpu_torch.exceptions import ILPBalancerInfeasibleError
+    from ambigram_tpu_torch.legacy.balancer import apply_balance, balance, write_balanced_lh
+    from ambigram_tpu_torch.legacy.juncdb import JunctionDB
+    from ambigram_tpu_torch.legacy.reachability import add_all_juncs_from_db, check_reachability
+    from ambigram_tpu_torch.model.genome import Genome
+
+    g = Genome.from_lh(args.in_lh)
+    g.calculate_hap_depth()
+    g.calculate_copy_num()
+    if args.juncdb:
+        db = JunctionDB(args.juncdb)
+        add_all_juncs_from_db(g, db)
+    unreachable = check_reachability(g)
+    for kind, vs in unreachable.items():
+        for v in vs:
+            print("unreachable (%s): %s" % (kind, v.info()))
+    try:
+        res = balance(g)
+    except ILPBalancerInfeasibleError:
+        # no circulation keeps every observed junction active (the
+        # reference's cbc would report Infeasible here and the run
+        # would die at parseILP); retry letting junctions switch
+        # off at the maximum penalty
+        print("balancer infeasible with all junctions on; relaxing")
+        res = balance(g, allow_junction_off=True)
+    apply_balance(g, res)
+    out_lh = args.out_lh or (args.lp_prefix + ".balanced.lh")
+    write_balanced_lh(g, out_lh, original_lh=args.in_lh)
+    print("balanced graph written to %s (objective %.4f)" % (out_lh, res.objective))
+    return res
+
+
+def _run_solve(args):
+    """The legacy traversal (`--op solve`): circuits, their division and
+    the haploids, written to the files the options name. Returns the
+    Traverser."""
+    from ambigram_tpu_torch.legacy.juncdb import JunctionDB
+    from ambigram_tpu_torch.legacy.reachability import connect_source_sink
+    from ambigram_tpu_torch.legacy.traversal import Traverser
+    from ambigram_tpu_torch.model.genome import Genome
+
+    g = Genome.from_lh(args.in_lh)
+    g.calculate_hap_depth()
+    g.calculate_copy_num()
+    connect_source_sink(g)
+    for j in g.junctions:
+        if j.weight.copy_num < 0:
+            j.weight.set_copy_num(max(round(j.weight.coverage / max(g.haploid_depth, 1e-9)), 1))
+    db = JunctionDB(args.juncdb) if args.juncdb else JunctionDB(g.junctions)
+    tr = Traverser(g)
+    if args.hic_matrix:
+        tr.read_hic_matrix(args.hic_matrix)
+    if args.tgs_order:
+        tr.read_long_frags(args.tgs_order)
+    tr.traverse_graph(db)
+    tr.extract_circuits()
+    tr.divide_circuits()
+    tr.generate_haploids()
+    if args.circuits:
+        tr.write_circuits(args.circuits)
+    if args.traversed:
+        tr.write_traversed_paths(args.traversed)
+    hap = args.hap or (args.lp_prefix + ".haploids.txt")
+    tr.write_haploids(hap)
+    print("haploids written to %s" % hap)
+    return tr
 
 
 def _dispatch(args):
     if args.manifest or args.in_lh.endswith(".manifest"):
         if args.op != "bfb":
-            print("error: --manifest runs --op bfb (got --op %s)" % args.op, file=sys.stderr)
+            print(
+                "error: --manifest batches both bulk and sc cases; use --op bfb (got --op %s)" % args.op,
+                file=sys.stderr,
+            )
             return None
         # flags that would do nothing in manifest mode are an input error:
-        # juncs belong in the manifest's per-case columns
+        # juncs and edges belong in the manifest's per-case columns
         ignored = [
             name
             for name, val in (
@@ -267,25 +368,25 @@ def _dispatch(args):
         ]
         if ignored:
             print(
-                "error: %s not supported in manifest mode; put juncs= columns on the "
+                "error: %s not supported in manifest mode; put juncs=/edges= columns on the "
                 "manifest lines instead" % ", ".join(ignored),
                 file=sys.stderr,
             )
             return None
         return _run_manifest(args)
-    if args.op != "bfb":
-        print("error: --op %s is not yet ported to ambigram_tpu_torch" % args.op, file=sys.stderr)
-        return None
-    if args.edges:
+    if args.edges and args.op != "sc_bfb":
+        # --edges silently doing nothing would let a user believe an
+        # evolution DAG was applied when it was not
         print(
             "error: --edges is only meaningful with --op sc_bfb (got --op %s)" % args.op,
             file=sys.stderr,
         )
         return None
-    from ambigram_tpu_torch.engine.pipeline import run_bfb
-
-    return run_bfb(
-        args.in_lh,
+    if args.op == "check":
+        return _run_check(args)
+    if args.op == "solve":
+        return _run_solve(args)
+    common = dict(
         juncs_path=args.juncdb,
         juncs_info=_boolish(args.junc_info),
         is_reversed=_boolish(args.is_reversed),
@@ -297,6 +398,13 @@ def _dispatch(args):
         lp_prefix=args.lp_prefix,
         emit_lp=args.emit_lp,
     )
+    if args.op == "sc_bfb":
+        from ambigram_tpu_torch.engine.sc import run_sc_bfb
+
+        return run_sc_bfb(args.in_lh, edges=args.edges, **common)
+    from ambigram_tpu_torch.engine.pipeline import run_bfb
+
+    return run_bfb(args.in_lh, **common)
 
 
 def main(argv=None) -> int:

@@ -389,6 +389,17 @@ def simulate_sc_case(
     return ScCase(cases=cases, chains=chains, edges=edges)
 
 
+def write_sc_clones(sc: ScCase, prefix: str) -> Tuple[List[str], str]:
+    """Write clone k's LH text to `<prefix><k>.lh`; returns the file
+    names and the CLI --edges string of the evolution edges over them."""
+    names = []
+    for k, case in enumerate(sc.cases):
+        names.append("%s%d.lh" % (prefix, k))
+        with open(names[-1], "w") as f:
+            f.write(case.lh_text)
+    return names, sc.edges_arg(names)
+
+
 def all_junctions(path: List[Step]) -> Dict[Tuple[int, str, int, str], int]:
     """Every junction the path traverses (reference adjacencies
     included), canonicalized so a traversal and its reverse complement

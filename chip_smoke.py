@@ -51,12 +51,35 @@ and prints no result line:
    --solver device` on cuda, in process: every case prints a path with
    hard violation 0, the search runs as two case-stacked groups, and
    batched K1 launches at least twice, on its int8 path;
-9. a JSON line describing the kernels, then the result line
+9. K1 on the tensors of a single-cell block program (K=3 clones, S=32,
+   seed 3 of `simulate_sc_case`, chain; Rows 13056, Vp 3200, coupling
+   rows included), on its int8 path, at B=32 and B=1000: hx and scores
+   bitwise equal to the plain version (integer targets); then its times
+   beside the plain version, `torch.matmul` and the bound, as in phase 3;
+10. the single-cell slice: that sample through `python -m
+   ambigram_tpu_torch.cli --op sc_bfb --edges <its evolution edges>
+   --solver auto` on cuda, in process. Its block program has 3168
+   variables, so auto sends it to the device search; the run must launch
+   K1 only on its int8 path, reach the host MILP's optimum (eps <= 8.0
+   + 1e-4, read from the solution the CLI replayed) with hard violation
+   0, and recover each clone's simulated truth (`multiplicity_diff` 0);
+11. K1 with a case axis on the block programs of seeds 3 and 4 (K=3,
+   S=32), stacked as the `sc:` manifest below stacks them (rows padded
+   with w = 0), on its int8 path at B=32: hx and scores bitwise equal
+   to the plain per-case loop (integer targets) and to one single-case
+   call per case;
+12. an `sc:` manifest of seeds 3 and 4 (K=3, S=32) through `python -m
+   ambigram_tpu_torch.cli --op bfb --manifest --solver device` on cuda:
+   both block programs search as one case-stacked group, batched K1
+   launches on its int8 path, and every clone prints a path from a
+   solution with hard violation 0;
+13. a JSON line describing the kernels, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Every launch count in the kernels line comes from the main paths (the
-slice, the chain leg and the manifest), each driven with the counts set
-to 0 just before it and read just after.
+slice, the chain leg, the manifest, the single-cell slice and the sc:
+manifest), each driven with the counts set to 0 just before it and read
+just after.
 """
 
 from __future__ import annotations
@@ -79,6 +102,10 @@ K2_SMALL_RTOL = 1e-6  # exact per-candidate sums: only the checksum's order diff
 K2_BENCH_RTOL = 1e-5  # the bar bench.py holds its chain layouts to
 K2_TIMED = dict(B=32768, iters=50)
 K2_HEADLINE = dict(B=262144, iters=3)  # the bench's batch, a few rounds
+SC = dict(n_clones=3, n_segments=32)  # single-cell samples: K=3 clones, S=32, chain
+SC_SLICE_SEED = 3
+SC_MANIFEST_SEEDS = (3, 4)
+SC_EPS_BAR = 8.0  # the host MILP's optimum (HiGHS) on the seed-3 block program
 DEVICE = "cuda"
 # NVIDIA H100 SXM data sheet (dense, at 700 W): the bounds' peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -507,12 +534,13 @@ def check_k2() -> dict:
             "library_ms": lib, "bound_ms": bnd, "bound_by": by}
 
 
-def check_k1_cases(label: str, progs) -> float:
+def check_k1_cases(label: str, progs, exact: bool = False) -> float:
     """K1 with a case axis on a stacked group, at the search's
     population (B=32): hx bitwise equal to the plain per-case loop and
     the scores within K1_RTOL of it (noisy cases: fractional targets
-    round in another order), and both bitwise equal to one single-case
-    call per case. Returns the largest score difference from plain."""
+    round in another order), or bitwise equal when `exact` (integer
+    targets), and both bitwise equal to one single-case call per case.
+    Returns the largest score difference from plain."""
     import numpy as np
     import torch
 
@@ -534,6 +562,8 @@ def check_k1_cases(label: str, progs) -> float:
     rel = float(((s_b - s_p).abs() / s_p.abs().clamp(min=1.0)).max())
     if rel > K1_RTOL:
         raise AssertionError("batched K1 scores off plain by rel %g (%s)" % (rel, label))
+    if exact and not torch.equal(s_b, s_p):
+        raise AssertionError("batched K1 scores not bitwise equal to plain (%s): %g" % (label, err))
     for g in range(len(progs)):
         s_g, hx_g = score_rows(st.case(g), X[g].contiguous(), want_hx=True)
         torch.cuda.synchronize()
@@ -556,6 +586,16 @@ def batch_groups(paths):
         prog = extract_programs(path)[0]
         groups.setdefault((prog.start, prog.end, prog.num_vars), []).append(prog)
     return groups
+
+
+def log_phases(names) -> None:
+    from ambigram_tpu_torch.utils.profiling import GLOBAL
+
+    for name in names:
+        st = GLOBAL.phases.get(name)
+        log("phase %-15s %.3f s x%d" % (name, st.seconds if st else 0.0, st.calls if st else 0))
+    for name in sorted(GLOBAL.counters):
+        log("counter %-22s %r" % (name, GLOBAL.counters[name]))
 
 
 def run_batch(workdir: str, paths) -> dict:
@@ -596,11 +636,7 @@ def run_batch(workdir: str, paths) -> dict:
             raise AssertionError("no path printed for %s" % path)
     log("batch: 4 cases, wall %.3f s, %.2f cases/min, K1 launches %d (int8 path %d)"
         % (wall, 4 * 60.0 / wall, launches, int8_launches))
-    for name in ("solve.tensors", "solve.lp_bound", "score", "solve.lns", "solve.exact", "replay"):
-        st = GLOBAL.phases.get(name)
-        log("phase %-15s %.3f s x%d" % (name, st.seconds if st else 0.0, st.calls if st else 0))
-    for name in sorted(GLOBAL.counters):
-        log("counter %-22s %r" % (name, GLOBAL.counters[name]))
+    log_phases(("solve.tensors", "solve.lp_bound", "score", "solve.lns", "solve.exact", "replay"))
     if max(violations) != 0.0:
         raise AssertionError("a batch solution violates hard rows: %r" % violations)
     calls = GLOBAL.counters.get("solve.device_calls", 0.0)
@@ -649,11 +685,7 @@ def run_slice(lh: str) -> dict:
         % (prog.num_vars, prog.G.shape[0] + 2 * prog.n, wall, eps, vio, res.chromosomes[0].certified,
            launches, int8_launches))
     log("slice: path %s" % path)
-    for name in ("solve.tensors", "solve.lp_bound", "score", "solve.lns", "solve", "replay"):
-        st = GLOBAL.phases.get(name)
-        log("phase %-15s %.3f s x%d" % (name, st.seconds if st else 0.0, st.calls if st else 0))
-    for name in sorted(GLOBAL.counters):
-        log("counter %-22s %r" % (name, GLOBAL.counters[name]))
+    log_phases(("solve.tensors", "solve.lp_bound", "score", "solve.lns", "solve", "replay"))
     score_s = GLOBAL.phases["score"].seconds if "score" in GLOBAL.phases else 0.0
     if score_s:
         log("candidates_scored / score phase: %.1f per s" % (GLOBAL.counters.get("candidates_scored", 0.0) / score_s))
@@ -666,6 +698,186 @@ def run_slice(lh: str) -> dict:
         raise AssertionError("solution violates hard rows: %r" % vio)
     if eps > EPS_BAR + 1e-4:
         raise AssertionError("eps %r above the bar %r" % (eps, EPS_BAR))
+    return {"launches": launches, "int8_launches": int8_launches, "wall": wall}
+
+
+def sc_sample(workdir: str, seed: int):
+    """The clone files of one single-cell sample; returns (ScCase, clone
+    paths, the --edges string of its evolution DAG)."""
+    from ambigram_tpu_torch.scripts.simulate import simulate_sc_case, write_sc_clones
+
+    sc = simulate_sc_case(seed=seed, **SC)
+    d = os.path.join(workdir, "sc_seed%d" % seed)
+    os.makedirs(d, exist_ok=True)
+    return (sc, *write_sc_clones(sc, os.path.join(d, "c")))
+
+
+def sc_block_program(names, edges):
+    from ambigram_tpu_torch.engine.sc import extract_sc_programs
+
+    progs = [p for p in extract_sc_programs(",".join(names), edges) if p is not None]
+    if len(progs) != 1:
+        raise AssertionError("expected one block program, got %d" % len(progs))
+    return progs[0]
+
+
+def check_k1_block(prog) -> dict:
+    """K1 on the block program's tensors (coupling rows included), on its
+    int8 path: hx and scores bitwise equal to plain at B=32 and B=1000,
+    then its times; returns the kernels-line numbers of this shape."""
+    import torch
+
+    from ambigram_tpu_torch.solver.score import k1_planes, scoring_tensors
+
+    st = scoring_tensors(prog, DEVICE)
+    if k1_planes(st) != 1 or prog.num_coupling == 0:
+        raise AssertionError("the block program should take K1's one-plane int8 path with coupling rows")
+    label = "sc block K=%d S=%d seed %d" % (SC["n_clones"], SC["n_segments"], SC_SLICE_SEED)
+    pop = population(prog, st.x_ub.cpu().numpy(), 1000, seed=2)
+    err = check_k1_case(label, st, {"population": pop}, "population", "int8")
+    timing = time_k1(label, st, pop, "int8")
+    del st
+    torch.cuda.empty_cache()
+    kern, plain, lib, bnd, by = timing[32]
+    return {"max_abs_err": err, "ms": kern, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
+            "bound_by": by, "ms_b1000": timing[1000][0]}
+
+
+@contextlib.contextmanager
+def spy(module, name: str, record: list):
+    """Replace module.name by a wrapper that appends (args, result) of
+    every call to `record`."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        out = fn(*args, **kw)
+        record.append((args, out))
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield record
+    finally:
+        setattr(module, name, fn)
+
+
+def run_sc_slice(workdir: str) -> dict:
+    """The single-cell slice through the CLI's --op sc_bfb on cuda; the
+    solution the CLI replayed is read through a spy on pipeline._solve."""
+    import numpy as np
+    import torch
+
+    from ambigram_tpu_torch import cli
+    from ambigram_tpu_torch.engine import pipeline
+    from ambigram_tpu_torch.scripts.evaluate import multiplicity_diff
+    from ambigram_tpu_torch.solver.score import reset_launch_counts, score_rows
+    from ambigram_tpu_torch.utils.profiling import GLOBAL
+
+    sc, names, edges = sc_sample(workdir, SC_SLICE_SEED)
+    prog = sc_block_program(names, edges)
+    if prog.num_vars <= pipeline.AUTO_EXACT_FIRST_MAX_VARS:
+        raise AssertionError("block program has %d variables: auto would not reach the device" % prog.num_vars)
+    argv = ["--op", "sc_bfb", "--in_lh", ",".join(names), "--edges", edges, "--solver", "auto", "--device", DEVICE,
+            "--no-ledgers"]
+    log("sc slice: python -m ambigram_tpu_torch.cli " + " ".join(argv))
+    buf = io.StringIO()
+    with spy(pipeline, "_solve", []) as solved:
+        GLOBAL.reset()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = cli.run(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, int8_launches, f32_launches = score_rows.launches, score_rows.int8_launches, score_rows.f32_launches
+    if res is None or len(solved) != 1:
+        raise AssertionError("the CLI returned %r after %d solves" % (res, len(solved)))
+    sol = solved[0][1]
+    x = np.asarray(sol.x, dtype=np.float64)
+    eps, vio = float(prog.residual_objective(x)), float(prog.hard_violation(x))
+    lines = buf.getvalue().splitlines()
+    diffs = [multiplicity_diff(case.truth_string, res.path_strings[k][0] if res.path_strings[k] else "")
+             for k, case in enumerate(sc.cases)]
+    calls = GLOBAL.counters.get("solve.device_calls", 0.0)
+    log("sc slice: V=%d rows=%d coupling=%d wall %.3f s, status %s, eps %r, hard_violation %r, "
+        "K1 launches %d (int8 path %d, f32 path %d), multiplicity_diff per clone %r"
+        % (prog.num_vars, prog.G.shape[0] + 2 * prog.n + prog.num_coupling, prog.num_coupling, wall, sol.status,
+           eps, vio, launches, int8_launches, f32_launches, diffs))
+    log_phases(("solve.tensors", "solve.lp_bound", "score", "solve.lns", "solve", "replay"))
+    for k, paths in enumerate(res.path_strings):
+        if not paths or not all(p and p in lines for p in paths):
+            raise AssertionError("clone %d printed no path" % k)
+    if calls < 1:
+        raise AssertionError("the device search never ran (solve.device_calls = %r)" % calls)
+    if int8_launches < 1 or f32_launches != 0 or int8_launches != launches:
+        raise AssertionError("K1 launched %d times in the sc slice (%d int8, %d f32), expected >= 1, all int8"
+                             % (launches, int8_launches, f32_launches))
+    if vio != 0.0:
+        raise AssertionError("sc solution violates hard rows: %r" % vio)
+    if eps > SC_EPS_BAR + 1e-4:
+        raise AssertionError("sc eps %r above the bar %r" % (eps, SC_EPS_BAR))
+    if any(diffs):
+        raise AssertionError("a clone's path misses its simulated truth: %r" % diffs)
+    return {"launches": launches, "int8_launches": int8_launches, "wall": wall}
+
+
+def run_sc_manifest(workdir: str) -> dict:
+    """Two single-cell samples through the CLI's --manifest on cuda: one
+    case-stacked search of both block programs."""
+    import numpy as np
+    import torch
+
+    from ambigram_tpu_torch import cli
+    from ambigram_tpu_torch.engine import pipeline
+    from ambigram_tpu_torch.scripts.evaluate import multiplicity_diff
+    from ambigram_tpu_torch.solver import search
+    from ambigram_tpu_torch.solver.score import reset_launch_counts, score_rows
+    from ambigram_tpu_torch.utils.profiling import GLOBAL
+
+    samples = [sc_sample(workdir, seed) for seed in SC_MANIFEST_SEEDS]
+    manifest = os.path.join(workdir, "sc.manifest")
+    with open(manifest, "w") as f:
+        f.write("".join("sc:%s edges=%s\n" % (",".join(names), edges) for _, names, edges in samples))
+    argv = ["--op", "bfb", "--manifest", "--in_lh", manifest, "--solver", "device", "--device", DEVICE, "--no-ledgers"]
+    log("sc manifest: python -m ambigram_tpu_torch.cli " + " ".join(argv))
+    buf = io.StringIO()
+    with spy(pipeline, "solve_programs_batch", []) as batches, spy(search, "_dispatch", []) as groups:
+        GLOBAL.reset()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            results = cli.run(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, int8_launches = score_rows.launches, score_rows.int8_launches
+    if not results or len(results) != len(samples) or len(batches) != 1:
+        raise AssertionError("the sc manifest run returned %r" % (results,))
+    (flat, index), solutions = batches[0][0][:2], batches[0][1]
+    lines = buf.getvalue().splitlines()
+    for prog, key in zip(flat, index):
+        x = np.asarray(solutions[key].x, dtype=np.float64)
+        sc = samples[key[0]][0]
+        res = results[key[0]]
+        diffs = [multiplicity_diff(case.truth_string, res.path_strings[k][0] if res.path_strings[k] else "")
+                 for k, case in enumerate(sc.cases)]
+        vio = float(prog.hard_violation(x))
+        log("sc manifest sample seed %d: V=%d status %s, eps %r, hard_violation %r, multiplicity_diff per clone %r"
+            % (SC_MANIFEST_SEEDS[key[0]], prog.num_vars, solutions[key].status, float(prog.residual_objective(x)),
+               vio, diffs))
+        if vio != 0.0:
+            raise AssertionError("an sc manifest solution violates hard rows: %r" % vio)
+        for k, paths in enumerate(res.path_strings):
+            if not paths or not all(p and p in lines for p in paths):
+                raise AssertionError("sample %d clone %d printed no path" % (key[0], k))
+    sizes = [len(args[0]) for args, _ in groups]
+    log("sc manifest: %d samples, wall %.3f s, case-stacked groups %r, K1 launches %d (int8 path %d)"
+        % (len(samples), wall, sizes, launches, int8_launches))
+    log_phases(("solve.tensors", "solve.lp_bound", "score", "solve.lns", "replay"))
+    if sizes != [len(samples)] or GLOBAL.counters.get("solve.device_calls", 0.0) != 1:
+        raise AssertionError("expected one case-stacked group of %d, got %r" % (len(samples), sizes))
+    if launches < 1 or int8_launches != launches:
+        raise AssertionError("batched K1 launched %d times (%d on its int8 path), expected >= 1, all int8"
+                             % (launches, int8_launches))
     return {"launches": launches, "int8_launches": int8_launches, "wall": wall}
 
 
@@ -739,6 +951,13 @@ def main() -> int:
         for key, group in batch_groups(paths).items():
             k1_err.append(check_k1_cases("batch group V=%d" % key[2], group))
         batch = run_batch(workdir, paths)
+        blocks = [sc_block_program(*sc_sample(workdir, seed)[1:]) for seed in SC_MANIFEST_SEEDS]
+        k1_block = check_k1_block(blocks[SC_MANIFEST_SEEDS.index(SC_SLICE_SEED)])
+        sc_slice = run_sc_slice(workdir)
+        k1_err.append(check_k1_cases("sc group K=%d S=%d seeds %s" % (
+            SC["n_clones"], SC["n_segments"], ",".join(map(str, SC_MANIFEST_SEEDS))), blocks, exact=True))
+        del blocks
+        sc_batch = run_sc_manifest(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -749,16 +968,17 @@ def main() -> int:
                 "route": "cuda",
                 "source": "ambigram_tpu_torch/csrc/score_rows.cu",
                 "replaces": "ambigram_tpu/solver/score.py:435",
-                "launches": sl["launches"] + batch["launches"],
-                "max_abs_err": max([k1["max_abs_err"]] + k1_err),
+                "launches": sum(r["launches"] for r in (sl, batch, sc_slice, sc_batch)),
+                "max_abs_err": max([k1["max_abs_err"], k1_block["max_abs_err"]] + k1_err),
                 "ms": k1["ms"],
                 "plain_ms": k1["plain_ms"],
                 "bound_ms": k1["bound_ms"],
                 "bound_by": k1["bound_by"],
                 "library_ms": k1["library_ms"],
-                "int8_launches": sl["int8_launches"] + batch["int8_launches"],
+                "int8_launches": sum(r["int8_launches"] for r in (sl, batch, sc_slice, sc_batch)),
                 "ms_b1000": k1["ms_b1000"],
                 "f32_path_ms": k1["f32_path_ms"],
+                "sc_block": k1_block,
             },
             {
                 "name": "chained_score",

@@ -1,5 +1,5 @@
 """Card-only checks of the port: K1 and K2 on the GPU, the int8 scorer,
-the search and the batch path on cuda.
+the search, the batch path and the single-cell slice on cuda.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither jax nor a test module that does, so it also runs where
@@ -235,3 +235,65 @@ def test_bench_batch_leg_on_card(cuda_device):
     assert leg["solved"] == 16
     assert leg["max_hard_violation"] == 0.0
     assert leg["eps_sum"] <= 942.8
+
+
+def test_sc_slice_on_card(cuda_device, tmp_path, monkeypatch):
+    """The single-cell slice: K=3 clones at S=32 (seed 3, chain; its
+    block program has 3168 variables) through the CLI's --op sc_bfb
+    with its evolution edges and --solver auto. Auto sends it to the
+    device search, every K1 launch takes the int8 path, the replayed
+    solution reaches the host MILP's optimum (eps 8.0) with no hard
+    violation, and each clone's simulated truth is recovered."""
+    import contextlib
+    import io
+
+    from ambigram_tpu_torch import cli
+    from ambigram_tpu_torch.engine import pipeline
+    from ambigram_tpu_torch.scripts.evaluate import multiplicity_diff
+    from ambigram_tpu_torch.scripts.simulate import simulate_sc_case, write_sc_clones
+    from ambigram_tpu_torch.solver.score import reset_launch_counts
+    from ambigram_tpu_torch.utils.profiling import GLOBAL
+
+    sc = simulate_sc_case(seed=3, n_clones=3, n_segments=32)
+    names, edges = write_sc_clones(sc, str(tmp_path / "c"))
+    solved = []
+    solve = pipeline._solve
+
+    def spy(prog, *args, **kw):
+        solved.append((prog, solve(prog, *args, **kw)))
+        return solved[-1][1]
+
+    monkeypatch.setattr(pipeline, "_solve", spy)
+    GLOBAL.reset()
+    reset_launch_counts()
+    buf = io.StringIO()
+    argv = ["--op", "sc_bfb", "--in_lh", ",".join(names), "--edges", edges, "--solver", "auto",
+            "--device", "cuda", "--no-ledgers"]
+    with contextlib.redirect_stdout(buf):
+        res = cli.run(argv)
+    assert GLOBAL.counters.get("solve.device_calls", 0) >= 1
+    assert score_rows.int8_launches >= 1 and score_rows.f32_launches == 0
+    (prog, sol), = solved
+    assert prog.num_vars == 3168
+    x = sol.x.astype(np.float64)
+    assert float(prog.hard_violation(x)) == 0.0
+    assert float(prog.residual_objective(x)) <= 8.0 + 1e-4
+    lines = buf.getvalue().splitlines()
+    for k, case in enumerate(sc.cases):
+        assert res.path_strings[k][0] in lines
+        assert multiplicity_diff(case.truth_string, res.path_strings[k][0]) == 0
+
+
+@pytest.mark.slow
+def test_bench_sc_leg_on_card(cuda_device):
+    """The bench's single-cell leg (6 samples, K=3, S=24, chain and star
+    alternating): every sample solved in the batch leg and in the serial
+    exact loop. Every block program (V=1800) settles in the batch's
+    exact prepass, as in the JAX leg, so the search never runs."""
+    from ambigram_tpu_torch.utils.profiling import GLOBAL
+
+    GLOBAL.reset()
+    out = bench.bench_sc()
+    assert out["batch"]["solved"] == 6
+    assert out["serial"]["solved"] == 6
+    assert GLOBAL.counters.get("solve.device_calls", 0) == 0

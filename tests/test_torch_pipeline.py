@@ -93,21 +93,25 @@ def test_slice_matches_reference_on_simulated_cases(seed, tmp_path, small_search
 
 
 @pytest.mark.parametrize(
-    "argv",
+    "argv, message",
     [
-        ["--op", "sc_bfb", "--in_lh", EGFR6],
-        ["--op", "check", "--in_lh", EGFR6],
-        ["--op", "bfb", "--manifest", "--in_lh", "SC_MANIFEST"],
+        (["--op", "sc_bfb", "--manifest", "--in_lh", "SC_MANIFEST"], "use --op bfb"),
+        (["--op", "check", "--in_lh", EGFR6, "--edges", "1:2"], "--edges is only meaningful"),
+        (["--op", "bfb", "--manifest", "--in_lh", "SC_MANIFEST", "--edges", "1:2"], "not supported in manifest mode"),
     ],
     ids=["sc_bfb", "check", "manifest"],
 )
-def test_cli_unported_ops_exit_nonzero(argv, capsys, tmp_path):
-    """Bulk manifests are ported; single-cell (sc:) manifest lines are not."""
+def test_cli_unported_ops_exit_nonzero(argv, message, capsys, tmp_path):
+    """The ops that earlier slices refused as not yet ported (sc_bfb,
+    check, sc: manifest lines) now run (tests/test_torch_sc.py,
+    tests/test_torch_legacy.py); they exit non-zero only on the JAX
+    CLI's input errors, with its messages."""
     manifest = tmp_path / "sc.manifest"
     manifest.write_text("sc:%s,%s edges=1:2\n" % (EGFR6, EGFR6))
     argv = [str(manifest) if a == "SC_MANIFEST" else a for a in argv]
     assert cli.main(argv + ["--device", "cpu"]) != 0
-    assert "not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert message in err and "not yet ported" not in err
 
 
 def test_run_bfb_on_cuda_without_card_raises():
@@ -145,6 +149,40 @@ def test_port_main_path_loads_no_jax(tmp_path):
     assert "JAX_LOADED=False" in proc.stdout
     assert "LOADED=\n" in proc.stdout, proc.stdout[-2000:]
     assert proc.stdout.splitlines()[0] == GOLDEN_EGFR6
+
+
+@pytest.mark.parametrize(
+    "argv, expect",
+    [
+        (["--op", "sc_bfb", "--in_lh", "%s,%s" % (EGFR6, EGFR6), "--solver", "device", "--device", "cpu"],
+         "res.path_strings[0][0] == %r" % GOLDEN_EGFR6),
+        (["--op", "check", "--in_lh", os.path.join(DATA, "legacy75.lh"), "--out_lh", "balanced.lh"],
+         "res.status == 'optimal'"),
+    ],
+    ids=["sc_bfb", "check"],
+)
+def test_port_other_ops_load_no_jax(argv, expect, tmp_path):
+    """`--op sc_bfb` (the device route on the CPU) and `--op check` load
+    no module of jax, the JAX package or __graft_entry__ either."""
+    code = (
+        "import sys\n"
+        "from ambigram_tpu_torch import cli\n"
+        "res = cli.run(%r)\n"
+        "assert %s, res\n"
+        "print('LOADED=%%s' %% ','.join(sorted(m for m in sys.modules if m.split('.')[0] in %r)))\n"
+        % (argv + ["--no-ledgers"], expect, FORBIDDEN)
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(
+        AMBIGRAM_SEARCH_POP="8", AMBIGRAM_SEARCH_ROUNDS="2", AMBIGRAM_SEARCH_SWEEPS="64", OMP_NUM_THREADS="1"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(tmp_path), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED=\n" in proc.stdout, proc.stdout[-2000:]
 
 
 def port_sources():
