@@ -21,9 +21,11 @@ AMBIGRAM_BENCH_SUITE picks the secondary legs, which go to stderr:
 "1" (default) the 4xS48 suite (device, auto and exact modes) and the
 16-case batch (`run_bfb_many` against a serial exact loop); "0" none;
 "kernel" the K2 layout sweep; "sc" the single-cell batch
-(`run_sc_bfb_many` against a serial per-sample loop). The JAX bench's
-other modes (the scaling proxy, "big") are not yet ported and exit with
-code 2.
+(`run_sc_bfb_many` against a serial per-sample loop); "big" one noisy
+case each at S=64 and S=96 through the device search against the 60 s
+host MILP (`large_s_device_vs_exact`). The JAX bench's scaling proxy,
+part of its default mode there, is not yet ported; any other value
+exits with code 2. A leg that fails makes the bench exit 1.
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # H100 SXM dense int8 tensor-core peak (NVIDIA H100 data sheet, without
 # sparsity): the roofline the int8 block is stated against
 PEAK_INT8_TOPS = 1979.0
-SUITE_MODES = ("0", "1", "kernel", "sc")
+SUITE_MODES = ("0", "1", "kernel", "sc", "big")
+BIG_SEGMENTS = (64, 96)
 
 
 def _demo_program(n_segments: int = 24):
@@ -407,6 +410,90 @@ def bench_sc(n_samples: int = 6, n_clones: int = 3, n_segments: int = 24) -> dic
     }
 
 
+def big_case_path(workdir: str, n_segments: int, noise: float = 0.05) -> str:
+    """The JAX bench's large-S case at S=n_segments (seed 300 + S, 6
+    rounds, process mode, noise 0.05; V = 4160 at S=64, 9312 at S=96),
+    written under `workdir`; returns its .lh path."""
+    from ambigram_tpu_torch.scripts.simulate import simulate_bfb_case, write_case
+
+    case = simulate_bfb_case(seed=300 + n_segments, n_segments=n_segments, rounds=6, mode="process", noise=noise)
+    return write_case(case, os.path.join(workdir, "big%d_noise%g" % (n_segments, noise)))["lh"]
+
+
+def big_programs() -> dict:
+    """The big leg's programs, {S: program} for S in BIG_SEGMENTS."""
+    from ambigram_tpu_torch.engine.pipeline import extract_programs
+
+    td = tempfile.mkdtemp(prefix="ambigram_big_bench_")
+    try:
+        return {n_seg: extract_programs(big_case_path(td, n_seg))[0] for n_seg in BIG_SEGMENTS}
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
+
+
+def bench_big() -> dict:
+    """The large-S legs: each case through `solve_device` on the card
+    against `solve_exact` with a 60 s budget, in the JAX leg's schema
+    (`vars`, then `seconds` and `eps` of each solver, eps rounded to two
+    decimals and None unless feasible). Each leg adds the device
+    search's phases (`score`, `solve.lns`, `solve.lp_bound`,
+    `solve.tensors`), its sweep counts, the hard violation, K1's planes
+    and launches by path, and `compile_seconds`: before the clock the
+    CUDA context starts and K1 is built (the JAX leg compiles there with
+    a 1-round search)."""
+    import torch
+
+    from ambigram_tpu_torch.solver.exact import solve_exact
+    from ambigram_tpu_torch.solver.score import _k1_library, k1_planes, reset_launch_counts, score_rows, scoring_tensors
+    from ambigram_tpu_torch.solver.search import solve_device
+    from ambigram_tpu_torch.utils.profiling import GLOBAL
+
+    _require_cuda()
+    device = "cuda"
+    legs = {}
+    for n_seg, prog in big_programs().items():
+
+        def feas(r):
+            vio = float(prog.hard_violation(r.x.astype(np.float64)))
+            ok = r.status in ("optimal", "heuristic") and vio == 0.0
+            return (round(r.epsilon_sum, 2) if ok else None), vio
+
+        t0 = time.perf_counter()
+        torch.zeros(1, device=device)
+        _k1_library()
+        compile_seconds = round(time.perf_counter() - t0, 1)
+        GLOBAL.reset()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rd = solve_device(prog, device=device)
+        dev_secs = time.perf_counter() - t0
+        dev_eps, dev_vio = feas(rd)
+        phases = {k: round(GLOBAL.phases[k].seconds, 3) for k in ("score", "solve.lns", "solve.lp_bound", "solve.tensors")
+                  if k in GLOBAL.phases}
+        sweeps = {k.split(".")[1]: int(GLOBAL.counters.get(k, 0)) for k in
+                  ("search.delta_sweeps", "search.move_sweeps", "search.move3_sweeps")}
+        launches = {"int8": score_rows.int8_launches, "f32": score_rows.f32_launches, "all": score_rows.launches}
+        t0 = time.perf_counter()
+        re = solve_exact(prog, time_limit=60.0)
+        ex_secs = time.perf_counter() - t0
+        legs["S%d" % n_seg] = {
+            "vars": prog.num_vars,
+            "device": {
+                "seconds": round(dev_secs, 1),
+                "eps": dev_eps,
+                "status": rd.status,
+                "hard_violation": dev_vio,
+                "stages": phases,
+                "sweeps": sweeps,
+            },
+            "exact_60s": {"seconds": round(ex_secs, 1), "eps": feas(re)[0], "status": re.status},
+            "k1_planes": k1_planes(scoring_tensors(prog, "cpu", need_f32=False)),
+            "k1_launches": launches,
+            "compile_seconds": compile_seconds,
+        }
+    return legs
+
+
 def _secondary(metric: str, fn) -> bool:
     """Run one secondary leg; its JSON line (or its failure) goes to
     stderr so stdout stays the single result line. Returns whether the
@@ -468,6 +555,7 @@ def main() -> int:
         "1": [("suite_seconds_large_cases", bench_suite), ("batch_throughput_cases_per_min", bench_batch)],
         "kernel": [("kernel_layout_sweep", lambda: bench_kernel_sweep(st, X))],
         "sc": [("sc_batch_throughput", bench_sc)],
+        "big": [("large_s_device_vs_exact", bench_big)],
     }.get(suite_mode, [])
     finished = [_secondary(metric, fn) for metric, fn in legs]
     return 0 if all(finished) else 1

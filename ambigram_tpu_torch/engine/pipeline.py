@@ -823,8 +823,9 @@ def solve_programs_batch(
         per_case_lns = _per_case_lns_budget(len(flat), min(4, len(flat)))
         if len(flat) > 1:
             # deep queue on one device: case-stack same-shape groups,
-            # then auto's host tail per case
-            res = solve_device_batch(flat, device=device, lns_budget=per_case_lns)
+            # then auto's host tail per case; the JAX package gives one
+            # device's leg max(2, 8 // 1) host-tail threads
+            res = solve_device_batch(flat, device=device, lns_budget=per_case_lns, post_workers=8)
             for key, prog, r in zip(index, flat, res):
                 solutions[key] = _post_big_auto(prog, r, solver)
         else:

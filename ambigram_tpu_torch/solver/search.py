@@ -186,36 +186,70 @@ def _device_moves(prog: BfbProgram, device: torch.device):
         return _MOVES_CACHE[key]
 
 
-def _budgets():
-    """(pop, rounds, max_sweeps, patience) from the env knobs
-    AMBIGRAM_SEARCH_POP / _ROUNDS / _SWEEPS / _PATIENCE (32 / 6 / 256 /
-    2)."""
+def _budgets(pop: Optional[int] = None, rounds: Optional[int] = None, max_sweeps: Optional[int] = None):
+    """(pop, rounds, max_sweeps, patience): each argument given, or, when
+    it is None, its env knob AMBIGRAM_SEARCH_POP / _ROUNDS / _SWEEPS
+    (32 / 6 / 256); patience is always AMBIGRAM_SEARCH_PATIENCE (2)."""
     return (
-        int(os.environ.get("AMBIGRAM_SEARCH_POP", 32)),
-        int(os.environ.get("AMBIGRAM_SEARCH_ROUNDS", 6)),
-        int(os.environ.get("AMBIGRAM_SEARCH_SWEEPS", 256)),
+        int(os.environ.get("AMBIGRAM_SEARCH_POP", 32)) if pop is None else int(pop),
+        int(os.environ.get("AMBIGRAM_SEARCH_ROUNDS", 6)) if rounds is None else int(rounds),
+        int(os.environ.get("AMBIGRAM_SEARCH_SWEEPS", 256)) if max_sweeps is None else int(max_sweeps),
         int(os.environ.get("AMBIGRAM_SEARCH_PATIENCE", 2)),
     )
 
 
-def solve_device(prog: BfbProgram, device="cuda", lns_budget: Optional[float] = None) -> SolveResult:
+def solve_device(
+    prog: BfbProgram,
+    pop: Optional[int] = None,
+    seed: int = 0,
+    rounds: Optional[int] = None,
+    max_sweeps: Optional[int] = None,
+    certify: bool = True,
+    device="cuda",
+    polish: bool = True,
+    lns_budget: Optional[float] = None,
+) -> SolveResult:
     """Tiered device search on `device` (a group of one), then the host
-    tail: LNS polish when the incumbent falls short of the LP
-    certificate (wall clock capped by `lns_budget`, by default
-    AMBIGRAM_LNS_BUDGET), then the certificate. Search budgets come from
-    the env knobs (`_budgets`)."""
-    d = _dispatch([prog], [0], [0], resolve_device(device))
+    tail: LNS polish (when `polish`) if the incumbent falls short of the
+    LP certificate, its wall clock capped by `lns_budget` (by default
+    AMBIGRAM_LNS_BUDGET), then the certificate (when `certify`; without
+    it the search does not stop at the LP bound and the status stays
+    "heuristic"). `seed` seeds the population and the kicks, as in the
+    JAX package; budgets left None come from the env knobs
+    (`_budgets`)."""
+    d = _dispatch(
+        [prog], [seed], [seed], resolve_device(device), pop=pop, rounds=rounds, max_sweeps=max_sweeps, certify=certify
+    )
     x = _block_and_account(d)[0, : prog.num_vars]
-    return _finish_solution(prog, x, d["lbs"][0], lns_budget=lns_budget, converged=bool(d["converged"][0]))
+    return _finish_solution(
+        prog,
+        x,
+        d["lbs"][0],
+        certify=certify,
+        polish=polish,
+        lns_budget=lns_budget,
+        converged=bool(d["converged"][0]),
+    )
 
 
-def _dispatch(group: List[BfbProgram], seeds: List[int], kick_seeds: List[int], device: torch.device) -> dict:
+def _dispatch(
+    group: List[BfbProgram],
+    seeds: List[int],
+    kick_seeds: List[int],
+    device: torch.device,
+    pop: Optional[int] = None,
+    rounds: Optional[int] = None,
+    max_sweeps: Optional[int] = None,
+    certify: bool = True,
+    post_workers: int = 1,
+) -> dict:
     """Seed and run the tiered search of one case-stacked group of
     same-interval programs (one case is a group of one). Case k seeds
-    its population with seeds[k] (threaded: each seed solves an LP) and
-    draws its kicks from a generator seeded with kick_seeds[k]. Returns
-    the dict that `_block_and_account` reads."""
-    pop, rounds, max_sweeps, patience = _budgets()
+    its population with seeds[k] (on `post_workers` threads: each seed
+    solves an LP) and draws its kicks from a generator seeded with
+    kick_seeds[k]. A case stops at its certified LP bound only when
+    `certify`. Returns the dict that `_block_and_account` reads."""
+    pop, rounds, max_sweeps, patience = _budgets(pop, rounds, max_sweeps)
     with GLOBAL.phase("solve.tensors"):
         st = stack_cases(group, device)
     Vp = st.H.shape[-1]
@@ -226,11 +260,14 @@ def _dispatch(group: List[BfbProgram], seeds: List[int], kick_seeds: List[int], 
         return _seed_case(group[k], Vp, x_ub_np, pop, seeds[k])
 
     with GLOBAL.phase("solve.lp_bound"):
-        with ThreadPoolExecutor(max_workers=_POST_WORKERS) as pool:
+        with ThreadPoolExecutor(max_workers=post_workers) as pool:
             seeded = list(pool.map(_seed_one, range(len(group))))
     lbs = [lb for _, lb in seeded]
     targets = np.asarray(
-        [max(float(certified_bound(p, lb)), 0.0) if lb is not None else 0.0 for p, lb in zip(group, lbs)],
+        [
+            max(float(certified_bound(p, lb)), 0.0) if (certify and lb is not None) else 0.0
+            for p, lb in zip(group, lbs)
+        ],
         dtype=np.float32,
     )
     moves, moves3 = _device_moves(group[0], device)
@@ -290,13 +327,16 @@ def _finish_solution(
     prog: BfbProgram,
     x: np.ndarray,
     lb: Optional[float],
+    certify: bool = True,
+    polish: bool = True,
     lns_budget: Optional[float] = None,
     converged: bool = True,
 ) -> SolveResult:
-    """Host tail: measure the incumbent, polish when it falls short of
-    the certificate, certify, wrap. `lns_budget` caps the polish's wall
-    clock (None: AMBIGRAM_LNS_BUDGET); batch callers divide one global
-    budget across their cases.
+    """Host tail: measure the incumbent, polish (when `polish`) when it
+    falls short of the certificate, certify (when `certify`), wrap.
+    `lns_budget` caps the polish's wall clock (None:
+    AMBIGRAM_LNS_BUDGET); batch callers divide one global budget across
+    their cases.
 
     A CONVERGED incumbent is already a local optimum of the full tiered
     neighborhood, so it gets only the cheap LNS probe (escalating on
@@ -308,9 +348,7 @@ def _finish_solution(
     eps_sum = float(prog.residual_objective(x_int.astype(np.float64)))
     violation = float(prog.hard_violation(x_int.astype(np.float64)))
     tgt = certified_bound(prog, lb) if lb is not None else None
-    if (
-        violation > 0.0 or (eps_sum > 0.0 and (tgt is None or eps_sum > tgt + 1e-6))
-    ):
+    if polish and (violation > 0.0 or (eps_sum > 0.0 and (tgt is None or eps_sum > tgt + 1e-6))):
         with GLOBAL.phase("solve.lns"):
             if violation > 0.0 or not converged:
                 x_p, eps_p, vio_p = lns_polish(prog, x_int, target=tgt, time_budget=lns_budget)
@@ -337,7 +375,7 @@ def _finish_solution(
         if (vio_p, eps_p) < (violation, eps_sum):
             x_int, eps_sum, violation = x_p, eps_p, vio_p
     status = "heuristic"
-    if violation == 0.0:
+    if violation == 0.0 and certify:
         # eps == 0 is its own certificate (the objective is nonnegative)
         if eps_sum == 0.0:
             status = "optimal"
@@ -354,28 +392,36 @@ def _finish_solution(
     )
 
 
-_POST_WORKERS = 8  # host-tail threads: the JAX package's value for one device
-
-
 def solve_device_batch(
-    progs: List[BfbProgram], device="cuda", lns_budget: Optional[float] = None
+    progs: List[BfbProgram],
+    seed: int = 0,
+    pop: Optional[int] = None,
+    rounds: Optional[int] = None,
+    max_sweeps: Optional[int] = None,
+    certify: bool = True,
+    device="cuda",
+    polish: bool = True,
+    lns_budget: Optional[float] = None,
+    post_workers: int = 4,
 ) -> List[SolveResult]:
     """Solve a list of fitting programs with the full tiered search in
     as few searches as possible: programs sharing one (start, end,
     num_vars) interval are case-stacked (`stack_cases`) and searched
     together by `batch_search`, so every sweep and rescoring covers the
     whole group. Groups are padded to a power of two by repeating their
-    last program, as in the JAX package. Returns [SolveResult] aligned
-    with `progs`.
+    last program, as in the JAX package. The keyword arguments mean what
+    they mean to `solve_device`. Returns [SolveResult] aligned with
+    `progs`.
 
     The groups search one after another, largest first, on the calling
     thread: the search loop reads flags from the card every sweep, so a
     second group could not be queued behind the first as JAX's
     asynchronous dispatch queued it. Each finished group's per-case host
     tail (`_finish_solution`: LNS probe or polish, certificate) runs on
-    a thread pool while the next group searches. As in the JAX package,
-    case i seeds its population with seed i; a group's k-th case draws
-    its kicks from seed k, a lone case from its own seed i."""
+    a pool of `post_workers` threads while the next group searches; the
+    seeding LPs of a group run on as many. As in the JAX package, case i
+    seeds its population with seed + i; a group's k-th case draws its
+    kicks from seed + k, a lone case from its own seed + i."""
     device = resolve_device(device)
     groups: dict = {}
     for i, prog in enumerate(progs):
@@ -383,14 +429,24 @@ def solve_device_batch(
     ordered = [idxs for _, idxs in sorted(groups.items(), key=lambda kv: -len(kv[1]) * kv[0][2])]
     results: List[Optional[SolveResult]] = [None] * len(progs)
     tails = []
-    with ThreadPoolExecutor(max_workers=_POST_WORKERS) as pool:
+    with ThreadPoolExecutor(max_workers=post_workers) as pool:
         for idxs in ordered:
             Gp = 1
             while Gp < len(idxs):
                 Gp *= 2
             padded = idxs + [idxs[-1]] * (Gp - len(idxs))
-            kick_seeds = idxs if Gp == 1 else list(range(Gp))
-            d = _dispatch([progs[i] for i in padded], padded, kick_seeds, device)
+            kick_seeds = [seed + i for i in idxs] if Gp == 1 else [seed + k for k in range(Gp)]
+            d = _dispatch(
+                [progs[i] for i in padded],
+                [seed + i for i in padded],
+                kick_seeds,
+                device,
+                pop=pop,
+                rounds=rounds,
+                max_sweeps=max_sweeps,
+                certify=certify,
+                post_workers=post_workers,
+            )
             best = _block_and_account(d)
             for k, i in enumerate(idxs):
                 tails.append(
@@ -401,6 +457,8 @@ def solve_device_batch(
                             progs[i],
                             best[k, : progs[i].num_vars],
                             d["lbs"][k],
+                            certify,
+                            polish,
                             lns_budget,
                             bool(d["converged"][k]),
                         ),

@@ -73,13 +73,30 @@ and prints no result line:
    both block programs search as one case-stacked group, batched K1
    launches on its int8 path, and every clone prints a path from a
    solution with hard violation 0;
-13. a JSON line describing the kernels, then the result line
+13. K1's two-plane int8 path at the bench's S=96 shape: the tensors of
+   the seed-396 case of the bench's big leg (S=96, 6 rounds, noise 0.05;
+   Rows 32512, Vp 9344, x_ub_max 821.8, so the candidates take two u8
+   planes, and the row values reach 92% of 2^24), at B=32 and B=1000:
+   hx bitwise equal to the plain version and the scores within rtol
+   1e-5; on its noise-free twin (also two planes) the scores bitwise
+   equal too; then its times beside the plain version, `torch.matmul`
+   and the bound (both planes' operations counted), as in phase 3;
+14. the S=64 slice: the seed-364 case of the big leg (V 4160, one u8
+   plane) through `python -m ambigram_tpu_torch.cli --op bfb --solver
+   auto` on cuda, in process: auto sends it to the device search; the
+   run must print a path, launch K1 only on its int8 path, and reach
+   hard violation 0 with eps <= 3.78 (two decimals), the JAX device
+   search's value (docs/bench_big.json);
+15. the port's golden suite, `python -m
+   ambigram_tpu_torch.scripts.golden_suite --solver device --device
+   cuda`, in process: every check ok, and K1 launched;
+16. a JSON line describing the kernels, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Every launch count in the kernels line comes from the main paths (the
-slice, the chain leg, the manifest, the single-cell slice and the sc:
-manifest), each driven with the counts set to 0 just before it and read
-just after.
+slice, the chain leg, the manifest, the single-cell slice, the sc:
+manifest, the S=64 slice and the golden suite), each driven with the
+counts set to 0 just before it and read just after.
 """
 
 from __future__ import annotations
@@ -87,6 +104,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -106,6 +124,7 @@ SC = dict(n_clones=3, n_segments=32)  # single-cell samples: K=3 clones, S=32, c
 SC_SLICE_SEED = 3
 SC_MANIFEST_SEEDS = (3, 4)
 SC_EPS_BAR = 8.0  # the host MILP's optimum (HiGHS) on the seed-3 block program
+S64_EPS_BAR = 3.78  # the JAX device search at S=64, two decimals (docs/bench_big.json)
 DEVICE = "cuda"
 # NVIDIA H100 SXM data sheet (dense, at 700 W): the bounds' peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -220,13 +239,13 @@ def bound_ms(bytes_moved: float, ops: float):
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def k1_bound(st, B: int):
+def k1_bound(st, B: int, planes: int = 1):
     """K1's int8 path at one case: H8 and the row vectors read once, X
     read once, hx and the scores written once; 2 B Rows Vp int8
-    operations."""
+    operations per u8 plane of the candidates."""
     rows, vp = st.H8.shape
     bytes_moved = rows * vp + 3 * rows * 4 + B * vp * 4 + B * rows * 4 + B * 4
-    return bound_ms(bytes_moved, 2.0 * B * rows * vp)
+    return bound_ms(bytes_moved, 2.0 * planes * B * rows * vp)
 
 
 def check_k1_case(label, st, X_sets, exact_kind, path):
@@ -267,7 +286,7 @@ def check_k1_case(label, st, X_sets, exact_kind, path):
     return worst
 
 
-def time_k1(label, st, X_pop, path):
+def time_k1(label, st, X_pop, path, planes: int = 1):
     """Times at B=32 and B=1000, each after an L2 flush: K1, its plain
     version and one torch.matmul(X, H.T) in f32 (the library call for
     the product alone); {B: (kernel, plain, library, bound, bound_by)}."""
@@ -289,7 +308,7 @@ def time_k1(label, st, X_pop, path):
         host_k = host_us(lambda: score_rows(st, X, want_hx=True))
         host_l = host_us(lambda: torch.matmul(X, H.t()))
         kern, plain, lib = (kern_a + kern_b) / 2, (plain_a + plain_b) / 2, (lib_a + lib_b) / 2
-        bnd, by = k1_bound(st, B)
+        bnd, by = k1_bound(st, B, planes)
         out[B] = (kern, plain, lib, bnd, by)
         log(
             "k1 time %s path %s B=%d rows=%d vp=%d (device, L2 flushed): kernel %.4f ms (%.4f, %.4f; %.4f back to back), "
@@ -648,7 +667,11 @@ def run_batch(workdir: str, paths) -> dict:
     return {"launches": launches, "int8_launches": int8_launches, "wall": wall}
 
 
-def run_slice(lh: str) -> dict:
+def run_slice(lh: str, label: str = "slice", eps_bar: float = EPS_BAR, two_decimals: bool = False) -> dict:
+    """One case through the CLI's --op bfb --solver auto on cuda: the
+    device search must run, K1 launch only on its int8 path, a path be
+    printed, and the replayed solution reach hard violation 0 with eps at
+    most `eps_bar` (+1e-4, or after rounding to two decimals)."""
     import numpy as np
     import torch
 
@@ -661,7 +684,7 @@ def run_slice(lh: str) -> dict:
     if prog.num_vars <= AUTO_EXACT_FIRST_MAX_VARS:
         raise AssertionError("case has %d variables: auto would not reach the device" % prog.num_vars)
     argv = ["--op", "bfb", "--in_lh", lh, "--solver", "auto", "--device", DEVICE, "--no-ledgers"]
-    log("slice: python -m ambigram_tpu_torch.cli " + " ".join(argv))
+    log(label + ": python -m ambigram_tpu_torch.cli " + " ".join(argv))
     GLOBAL.reset()
     reset_launch_counts()
     buf = io.StringIO()
@@ -681,10 +704,10 @@ def run_slice(lh: str) -> dict:
     eps = float(prog.residual_objective(x))
     vio = float(prog.hard_violation(x))
     calls = GLOBAL.counters.get("solve.device_calls", 0.0)
-    log("slice: V=%d rows=%d wall %.3f s, eps %r, hard_violation %r, certified %s, K1 launches %d (int8 path %d)"
-        % (prog.num_vars, prog.G.shape[0] + 2 * prog.n, wall, eps, vio, res.chromosomes[0].certified,
+    log("%s: V=%d rows=%d wall %.3f s, eps %r, hard_violation %r, certified %s, K1 launches %d (int8 path %d)"
+        % (label, prog.num_vars, prog.G.shape[0] + 2 * prog.n, wall, eps, vio, res.chromosomes[0].certified,
            launches, int8_launches))
-    log("slice: path %s" % path)
+    log("%s: path %s" % (label, path))
     log_phases(("solve.tensors", "solve.lp_bound", "score", "solve.lns", "solve", "replay"))
     score_s = GLOBAL.phases["score"].seconds if "score" in GLOBAL.phases else 0.0
     if score_s:
@@ -692,12 +715,12 @@ def run_slice(lh: str) -> dict:
     if calls < 1:
         raise AssertionError("the device search never ran (solve.device_calls = %r)" % calls)
     if launches < 2 or int8_launches != launches:
-        raise AssertionError("K1 launched %d times in the slice (%d on its int8 path), expected >= 2, all int8"
-                             % (launches, int8_launches))
+        raise AssertionError("K1 launched %d times in the %s (%d on its int8 path), expected >= 2, all int8"
+                             % (launches, label, int8_launches))
     if vio != 0.0:
         raise AssertionError("solution violates hard rows: %r" % vio)
-    if eps > EPS_BAR + 1e-4:
-        raise AssertionError("eps %r above the bar %r" % (eps, EPS_BAR))
+    if (round(eps, 2) > eps_bar) if two_decimals else (eps > eps_bar + 1e-4):
+        raise AssertionError("%s: eps %r above the bar %r" % (label, eps, eps_bar))
     return {"launches": launches, "int8_launches": int8_launches, "wall": wall}
 
 
@@ -881,6 +904,85 @@ def run_sc_manifest(workdir: str) -> dict:
     return {"launches": launches, "int8_launches": int8_launches, "wall": wall}
 
 
+def run_s64_slice(workdir: str) -> dict:
+    """The S=64 case of the big leg through the CLI on cuda: one u8
+    plane, K1's int8 path only, eps <= 3.78 (two decimals)."""
+    from ambigram_tpu_torch.bench import big_case_path
+    from ambigram_tpu_torch.engine.pipeline import extract_programs
+    from ambigram_tpu_torch.solver.score import k1_planes, scoring_tensors
+
+    lh = big_case_path(workdir, 64)
+    planes = k1_planes(scoring_tensors(extract_programs(lh)[0], "cpu", need_f32=False))
+    if planes != 1:
+        raise AssertionError("the S=64 case should take K1's one-plane int8 path, got %d" % planes)
+    return run_slice(lh, label="S=64 slice", eps_bar=S64_EPS_BAR, two_decimals=True)
+
+
+def check_k1_two_planes(workdir: str) -> dict:
+    """K1 on the S=96 case of the big leg, on its two-plane int8 path:
+    hx bitwise equal to plain and the scores within K1_RTOL at B=32 and
+    B=1000, bitwise on the noise-free twin; then its times. Returns the
+    kernels-line numbers of this shape."""
+    import torch
+
+    from ambigram_tpu_torch.bench import big_case_path
+    from ambigram_tpu_torch.engine.pipeline import extract_programs
+    from ambigram_tpu_torch.solver.score import k1_planes, scoring_tensors
+
+    out = {}
+    for noise in (0.0, 0.05):
+        prog = extract_programs(big_case_path(workdir, 96, noise))[0]
+        st = scoring_tensors(prog, DEVICE)
+        planes = k1_planes(st)
+        log("k1 two planes S=96 noise %g: V=%d rows=%d vp=%d x_ub_max %r max|H8| %d, row-value bound %.4f of 2^24, "
+            "%d planes" % (noise, prog.num_vars, st.H8.shape[0], st.H8.shape[1], st.x_ub_max, st.h8_absmax(),
+                           math.ceil(st.x_ub_max) * st.h8_absmax() * st.H8.shape[1] / 2**24, planes))
+        if planes != 2:
+            raise AssertionError("the S=96 case (noise %g) should take K1's two-plane int8 path, got %d" % (noise, planes))
+        label = "S=96 seed 396 noise%g" % noise
+        pop = population(prog, st.x_ub.cpu().numpy(), 1000, seed=2)
+        err = check_k1_case(label, st, {"population": pop}, "population" if noise == 0.0 else None, "int8")
+        if noise > 0.0:
+            timing = time_k1(label, st, pop, "int8", planes=2)
+            kern, plain, lib, bnd, by = timing[32]
+            out = {"max_abs_err": err, "ms": kern, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
+                   "bound_by": by, "ms_b1000": timing[1000][0], "plain_ms_b1000": timing[1000][1],
+                   "library_ms_b1000": timing[1000][2], "bound_ms_b1000": timing[1000][3], "planes": planes}
+        del st
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_golden_suite() -> dict:
+    """The port's golden suite with the device search on cuda, through
+    its command line, in process: every check ok, and K1 launched."""
+    import torch
+
+    from ambigram_tpu_torch.scripts import golden_suite
+    from ambigram_tpu_torch.solver.score import reset_launch_counts, score_rows
+
+    argv = ["--solver", "device", "--device", DEVICE]
+    log("golden suite: python -m ambigram_tpu_torch.scripts.golden_suite " + " ".join(argv))
+    buf = io.StringIO()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = golden_suite.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, int8_launches = score_rows.launches, score_rows.int8_launches
+    report = json.loads(buf.getvalue())
+    for c in report["checks"]:
+        log("golden suite %-16s ok %s %.3f s %s" % (c["name"], c["ok"], c["seconds"], c["detail"][-80:].replace("\n", " ")))
+    log("golden suite: %d checks, wall %.3f s, K1 launches %d (int8 path %d)"
+        % (len(report["checks"]), wall, launches, int8_launches))
+    if rc != 0 or not report["ok"] or len(report["checks"]) != 16:
+        raise AssertionError("the golden suite failed on the device search: rc %d" % rc)
+    if launches < 1:
+        raise AssertionError("the golden suite's device search never launched K1")
+    return {"launches": launches, "int8_launches": int8_launches, "wall": wall}
+
+
 def sass_counts(path: str) -> dict:
     """Tensor-core instructions in a library's SASS (cuobjdump), by
     mnemonic: IMMA is mma.sync on integers, [HIQ]GMMA the warpgroup
@@ -958,6 +1060,9 @@ def main() -> int:
             SC["n_clones"], SC["n_segments"], ",".join(map(str, SC_MANIFEST_SEEDS))), blocks, exact=True))
         del blocks
         sc_batch = run_sc_manifest(workdir)
+        k1_big = check_k1_two_planes(workdir)
+        s64 = run_s64_slice(workdir)
+        golden = run_golden_suite()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -968,17 +1073,18 @@ def main() -> int:
                 "route": "cuda",
                 "source": "ambigram_tpu_torch/csrc/score_rows.cu",
                 "replaces": "ambigram_tpu/solver/score.py:435",
-                "launches": sum(r["launches"] for r in (sl, batch, sc_slice, sc_batch)),
-                "max_abs_err": max([k1["max_abs_err"], k1_block["max_abs_err"]] + k1_err),
+                "launches": sum(r["launches"] for r in (sl, batch, sc_slice, sc_batch, s64, golden)),
+                "max_abs_err": max([k1["max_abs_err"], k1_block["max_abs_err"], k1_big["max_abs_err"]] + k1_err),
                 "ms": k1["ms"],
                 "plain_ms": k1["plain_ms"],
                 "bound_ms": k1["bound_ms"],
                 "bound_by": k1["bound_by"],
                 "library_ms": k1["library_ms"],
-                "int8_launches": sum(r["int8_launches"] for r in (sl, batch, sc_slice, sc_batch)),
+                "int8_launches": sum(r["int8_launches"] for r in (sl, batch, sc_slice, sc_batch, s64, golden)),
                 "ms_b1000": k1["ms_b1000"],
                 "f32_path_ms": k1["f32_path_ms"],
                 "sc_block": k1_block,
+                "big_s96": k1_big,
             },
             {
                 "name": "chained_score",

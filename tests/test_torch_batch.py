@@ -264,3 +264,79 @@ def test_bench_and_batch_path_load_no_jax(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "JAX_LOADED=False" in proc.stdout
+
+
+def test_bench_big_programs_are_the_jax_legs(tmp_path):
+    """The port bench's big leg runs the JAX leg's programs (bench.py's
+    `bench_big`: seed 300 + S, 6 rounds, process mode, noise 0.05), field
+    for field; S=64 takes one u8 plane of K1's int8 path, S=96 two, its
+    row values at 92% of 2^24."""
+    import dataclasses
+    import math
+
+    from ambigram_tpu.engine.pipeline import extract_programs
+    from ambigram_tpu.scripts.simulate import simulate_bfb_case, write_case
+    from ambigram_tpu_torch import bench
+    from ambigram_tpu_torch.solver.score import k1_planes, scoring_tensors
+
+    progs = bench.big_programs()
+    assert sorted(progs) == [64, 96]
+    for n_seg, prog in progs.items():
+        case = simulate_bfb_case(seed=300 + n_seg, n_segments=n_seg, rounds=6, mode="process", noise=0.05)
+        ref = extract_programs(write_case(case, str(tmp_path / ("big%d" % n_seg)))["lh"])[0]
+        for f in dataclasses.fields(ref):
+            a, b = getattr(prog, f.name), getattr(ref, f.name)
+            assert np.array_equal(a, b) if isinstance(b, np.ndarray) else a == b, f.name
+        st = scoring_tensors(prog, "cpu", need_f32=False)
+        fill = math.ceil(st.x_ub_max) * st.h8_absmax() * st.H8.shape[1] / 2**24
+        assert (prog.num_vars, k1_planes(st)) == {64: (4160, 1), 96: (9312, 2)}[n_seg]
+        assert tuple(st.H8.shape) == {64: (14592, 4224), 96: (32512, 9344)}[n_seg]
+        if n_seg == 96:
+            assert 0.9 < fill < 1.0
+
+
+BATCH_QUALITY_BUDGET = dict(pop=8, rounds=2, max_sweeps=64)
+
+
+def batch_quality(pkg: str, seed: int) -> list:
+    """One package's `solve_device_batch` over the bench's 16 batch
+    programs (seeds 200-215, S=32/48 alternating, noise 0.05) at equal
+    reduced budgets, without the wall-clock LNS and the certificate;
+    each case's eps, None unless feasible."""
+    import tempfile
+
+    if pkg == "jax":
+        from ambigram_tpu.engine.pipeline import extract_programs
+        from ambigram_tpu.scripts.simulate import simulate_bfb_case, write_case
+
+        solve, kw = jsearch.solve_device_batch, {}
+    else:
+        from ambigram_tpu_torch.engine.pipeline import extract_programs
+        from ambigram_tpu_torch.scripts.simulate import simulate_bfb_case, write_case
+
+        solve, kw = search.solve_device_batch, {"device": "cpu"}
+    td = tempfile.mkdtemp()
+    progs = []
+    for i in range(16):
+        case = simulate_bfb_case(seed=200 + i, n_segments=32 if i % 2 == 0 else 48, rounds=5, mode="process", noise=0.05)
+        progs.append(extract_programs(write_case(case, os.path.join(td, "b%d" % i))["lh"])[0])
+    res = solve(progs, seed=seed, polish=False, certify=False, **BATCH_QUALITY_BUDGET, **kw)
+    out = []
+    for p, r in zip(progs, res):
+        feasible = float(p.hard_violation(r.x.astype(np.float64))) == 0.0
+        out.append(round(float(r.epsilon_sum), 4) if feasible else None)
+    return out
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_batch_quality_against_jax(seed):
+    """Both packages' batch search on the bench's 16 batch programs at
+    equal budgets and seed (about an hour per package on one CPU core
+    set): the port may not be worse than the JAX search on most cases.
+    Prints both packages' eps per case."""
+    jax_eps, port_eps = batch_quality("jax", seed), batch_quality("torch", seed)
+    print(json.dumps({"seed": seed, "jax": jax_eps, "port": port_eps}))
+    assert None not in jax_eps and None not in port_eps
+    worse = sum(t > j + 1e-9 for j, t in zip(jax_eps, port_eps))
+    assert worse <= len(port_eps) // 2, (jax_eps, port_eps)

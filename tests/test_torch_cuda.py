@@ -8,6 +8,7 @@ JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import json
 import os
 
 import numpy as np
@@ -123,6 +124,33 @@ def test_search_on_cuda_follows_the_cpu_trajectory(cuda_device, monkeypatch):
     assert np.array_equal(d_gpu["best_x"].cpu().numpy(), d_cpu["best_x"].numpy())
     assert torch.equal(d_gpu["best_s"].cpu(), d_cpu["best_s"])
     assert d_gpu["sweeps"] == d_cpu["sweeps"]
+
+
+def _determinism_prog():
+    """The program of tests/test_determinism.py."""
+    from ambigram_tpu_torch.engine.ilp import build_bfb_program
+
+    seg = np.array([2.0, 6.0, 8.0, 8.0, 4.0, 4.0])
+    fbi = np.array([0.0, 2.0, 1.0, 2.0, 0.0, 2.0])
+    return build_bfb_program(1, 6, seg, fbi, 32, 1)
+
+
+@pytest.mark.parametrize("case", ["determinism_prog", "s48_seed0_noisy"])
+def test_device_search_deterministic_on_cuda(cuda_device, tmp_path, case):
+    """solve_device(prog, seed=3) twice on the card gives the same x and
+    eps: on the program of tests/test_determinism.py at the default
+    budgets, and on the noisy S=48 seed-0 case (fractional targets, so
+    an unordered reduction in a sweep would show) without the
+    wall-clock LNS polish."""
+    if case == "determinism_prog":
+        prog, kw = _determinism_prog(), {}
+    else:
+        prog = simulated_prog(tmp_path, 0, 48, rounds=5, coverage=30.0, mode="process", noise=0.05)
+        kw = {"polish": False}
+    r1 = search.solve_device(prog, seed=3, device=cuda_device, **kw)
+    r2 = search.solve_device(prog, seed=3, device=cuda_device, **kw)
+    assert np.array_equal(r1.x, r2.x)
+    assert r1.epsilon_sum == r2.epsilon_sum
 
 
 @pytest.mark.slow
@@ -297,3 +325,21 @@ def test_bench_sc_leg_on_card(cuda_device):
     assert out["batch"]["solved"] == 6
     assert out["serial"]["solved"] == 6
     assert GLOBAL.counters.get("solve.device_calls", 0) == 0
+
+
+@pytest.mark.slow
+def test_bench_big_leg_on_card(cuda_device):
+    """The bench's big leg against the JAX device search's quality
+    (docs/bench_big.json): at S=64 eps <= 3.78 (two decimals), at S=96 a
+    feasible point with eps <= 98.32, hard violation 0 in both, and
+    every K1 launch on the int8 path (one plane at S=64, two at S=96)."""
+    out = bench.bench_big()
+    print("large_s_device_vs_exact %s" % json.dumps(out))
+    s64, s96 = out["S64"], out["S96"]
+    assert (s64["vars"], s96["vars"]) == (4160, 9312)
+    assert (s64["k1_planes"], s96["k1_planes"]) == (1, 2)
+    assert s64["device"]["eps"] is not None and s64["device"]["eps"] <= 3.78
+    assert s96["device"]["eps"] is not None and s96["device"]["eps"] <= 98.32
+    for leg in (s64, s96):
+        assert leg["device"]["hard_violation"] == 0.0
+        assert leg["k1_launches"]["f32"] == 0 and leg["k1_launches"]["int8"] == leg["k1_launches"]["all"] >= 1

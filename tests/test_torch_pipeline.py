@@ -185,6 +185,29 @@ def test_port_other_ops_load_no_jax(argv, expect, tmp_path):
     assert "LOADED=\n" in proc.stdout, proc.stdout[-2000:]
 
 
+def test_port_golden_suite_and_scripts_load_no_jax(tmp_path):
+    """`python -m ambigram_tpu_torch.scripts.golden_suite --solver exact
+    --device cpu`, after importing every host-only script the port
+    copied, loads no module of jax, the JAX package or __graft_entry__."""
+    code = (
+        "import sys\n"
+        "from ambigram_tpu_torch.scripts import barcode, juncdb_tool, legacy_pipeline, prep, support_profile, virus_sim\n"
+        "from ambigram_tpu_torch.scripts import golden_suite\n"
+        "assert golden_suite.main(['--solver', 'exact', '--device', 'cpu']) == 0\n"
+        "print('LOADED=%%s' %% ','.join(sorted(m for m in sys.modules if m.split('.')[0] in %r)))\n"
+        % (FORBIDDEN,)
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert '"ok": true' in proc.stdout
+    assert "LOADED=\n" in proc.stdout, proc.stdout[-2000:]
+
+
 def port_sources():
     """Every Python source of the port, with chip_smoke.py and the
     card-only test file, which run where JAX is not installed."""

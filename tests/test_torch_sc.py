@@ -421,11 +421,14 @@ def test_bench_sc_samples_are_the_jax_legs(tmp_path):
         assert progs[0].num_vars <= pipeline.AUTO_EXACT_FIRST_MAX_VARS
 
 
-@pytest.mark.parametrize("mode, rc, message", [("sc", 1, "needs an NVIDIA GPU"), ("big", 2, "not yet ported")])
+@pytest.mark.parametrize(
+    "mode, rc, message",
+    [("sc", 1, "needs an NVIDIA GPU"), ("big", 1, "needs an NVIDIA GPU"), ("proxy", 2, "not yet ported")],
+)
 def test_bench_sc_mode_is_ported_and_needs_a_card(mode, rc, message, monkeypatch, capsys):
-    """AMBIGRAM_BENCH_SUITE=sc is a ported mode: without a card it
-    fails as the bench's other modes do, never running on the CPU; a
-    mode still to port exits 2."""
+    """AMBIGRAM_BENCH_SUITE=sc and =big are ported modes: without a card
+    they fail as the bench's other modes do, never running on the CPU; a
+    mode still to port (the scaling proxy) exits 2."""
     from ambigram_tpu_torch import bench
 
     if torch.cuda.is_available():

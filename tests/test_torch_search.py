@@ -175,3 +175,79 @@ def test_lns_polish_matches_jax_copy():
     assert got[1:] == want[1:]
     assert got[2] == 0.0
 
+
+
+def _determinism_prog():
+    """The program of tests/test_determinism.py, built by the port."""
+    from ambigram_tpu_torch.engine.ilp import build_bfb_program
+
+    seg = np.array([2.0, 6.0, 8.0, 8.0, 4.0, 4.0])
+    fbi = np.array([0.0, 2.0, 1.0, 2.0, 0.0, 2.0])
+    return build_bfb_program(1, 6, seg, fbi, 32, 1)
+
+
+def test_device_search_deterministic():
+    """The port's counterpart of tests/test_determinism.py's
+    test_device_search_deterministic: one program, seed 3, twice, at the
+    default budgets, gives the same x and eps."""
+    prog = _determinism_prog()
+    r1 = search.solve_device(prog, seed=3, device="cpu")
+    r2 = search.solve_device(prog, seed=3, device="cpu")
+    assert np.array_equal(r1.x, r2.x)
+    assert r1.epsilon_sum == r2.epsilon_sum
+
+
+def _spy_dispatch(monkeypatch):
+    calls = []
+    real = search._dispatch
+
+    def spy(group, seeds, kick_seeds, device, **kw):
+        d = real(group, seeds, kick_seeds, device, **kw)
+        calls.append((len(group), list(seeds), list(kick_seeds), kw, d))
+        return d
+
+    monkeypatch.setattr(search, "_dispatch", spy)
+    return calls
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_seed_offsets_population_and_kicks_as_jax(seed, monkeypatch, small_search):
+    """`seed` offsets the seeds as the JAX package's does
+    (ambigram_tpu/solver/search.py: `_seed_case(..., seed + idxs[k])`,
+    kicks from `PRNGKey(seed + k)` in a group, a lone case `seed + i` for
+    both): a group of three same-interval programs is padded to four
+    with the last repeated; a lone case keeps its own index. A lone
+    case's batch search is the single-case search, bitwise."""
+    calls = _spy_dispatch(monkeypatch)
+    rng = np.random.default_rng(0)
+    a = _random_prog(rng, n=5)
+    b = _egfr_prog()
+    res = search.solve_device_batch([a, b, a, a], seed=seed, device="cpu")
+    assert [c[:3] for c in calls] == [
+        (4, [seed + 0, seed + 2, seed + 3, seed + 3], [seed + k for k in range(4)]),
+        (1, [seed + 1], [seed + 1]),
+    ]
+    lone = search.solve_device(b, seed=seed + 1, device="cpu")
+    np.testing.assert_array_equal(lone.x, res[1].x)
+    assert lone.epsilon_sum == res[1].epsilon_sum
+    np.testing.assert_array_equal(calls[1][4]["best_x"].numpy(), calls[2][4]["best_x"].numpy())
+
+
+def test_budget_arguments_override_the_env_knobs(monkeypatch, small_search):
+    """pop/rounds/max_sweeps given override the env knobs; without
+    `certify` the search does not stop at the LP bound and the status
+    stays heuristic; without `polish` no LNS runs."""
+    from ambigram_tpu_torch.utils.profiling import GLOBAL
+
+    calls = _spy_dispatch(monkeypatch)
+    prog = _random_prog(np.random.default_rng(3), n=6)
+    GLOBAL.reset()
+    res = search.solve_device(prog, pop=4, rounds=1, max_sweeps=2, certify=False, polish=False, device="cpu")
+    d = calls[0][4]
+    assert d["pop"] == 4 and calls[0][3]["certify"] is False
+    assert float(d["targets"][0]) == 0.0
+    assert d["sweeps"][0] <= 2
+    assert res.status == "heuristic" and "solve.lns" not in GLOBAL.phases
+    env = search._budgets()
+    assert env[:3] == (8, 3, 64)
+    assert search._budgets(pop=4, rounds=1, max_sweeps=2) == (4, 1, 2, env[3])
