@@ -10,9 +10,12 @@ line. Where the port differs:
 - `_solve`, `run_bfb`, `run_bfb_many` and `solve_programs_batch` take a
   torch `device` and run the port's search (solver/search.py) there;
   a CUDA device without a card raises;
-- `solve_programs_batch` runs on one device: the mesh, the stacked
-  sharded pass `_solve_stacked` and the multi-device legs are not
-  ported (with one case slot the JAX policy never reaches them).
+- `run_bfb_many` and `solve_programs_batch` take JAX's `mesh` as well
+  (a `parallel.mesh.Mesh` of torch devices). `mesh=None` is the (1, 1)
+  mesh of `device`, not every visible card as in JAX: on a host with
+  several cards that is still the one-card route, because the 16-case
+  batch took 206.4 s over four NVIDIA H100s against 123.5 s on one
+  (PERF.md); the multi-card route is `mesh=make_mesh()`.
 """
 
 from __future__ import annotations
@@ -698,10 +701,12 @@ def run_bfb_many(
     out=None,
     result_store: Optional[str] = None,
     ledger_dir: Optional[str] = None,
+    mesh=None,
 ) -> List[BfbResult]:
     """Batch pipeline: every case's fitting programs are solved in one
-    batch (`solve_programs_batch`), then each case's replay runs on a
-    thread pool; its text reaches `out` in input order.
+    batch (`solve_programs_batch`, on `mesh`, by default the one device
+    `device`), then each case's replay runs on a thread pool; its text
+    reaches `out` in input order.
 
     `result_store` (a directory) makes the batch idempotent: a finished
     case writes `<name>-<content-hash>.json`, and a rerun skips every
@@ -732,7 +737,7 @@ def run_bfb_many(
                 flat.append(prog)
                 index.append((i, n))
 
-    solutions = solve_programs_batch(flat, index, solver=solver, device=device)
+    solutions = solve_programs_batch(flat, index, solver=solver, device=device, mesh=mesh)
 
     results: List[Optional[BfbResult]] = [None] * len(lh_paths)
     buffers: Dict[int, _io.StringIO] = {}
@@ -779,18 +784,24 @@ def solve_programs_batch(
     index: List[tuple],
     solver: str = "auto",
     device="cuda",
+    mesh=None,
 ) -> Dict[tuple, object]:
     """Solve a flat list of fitting programs with the batch policy of
-    the JAX package on one device: the exact prepass (auto), then the
-    device search, then the exact tail. Returns {index_key:
-    SolveResult}.
+    the JAX package: exact prepass for small programs (auto), per-case
+    device searches for large ones (round-robin over the mesh's devices,
+    threaded) or one case-stacked leg per device when the queue is deep,
+    one stacked case-sharded pass (`_solve_stacked`) for the mid-size
+    rest when the mesh has more than one case slot, then the exact tail.
+    Returns {index_key: SolveResult}.
 
-    With one device the JAX policy sends every program to the device
-    branch (its mid-size cut is 0 for a single case slot), so the
-    stacked sharded pass (`_solve_stacked`) never runs and is not
-    ported: more than one program goes through the case-stacked
-    `solve_device_batch` and auto's per-case tail `_post_big_auto`, a
-    single one through `_solve`."""
+    `mesh=None` is the (1, 1) mesh of `device`. With one case slot the
+    mid-size cut is 0, so `_solve_stacked` never runs: more than one
+    program goes through the case-stacked `solve_device_batch` (8
+    host-tail threads) and auto's per-case tail `_post_big_auto`, a
+    single one through `_solve` (auto) or `solve_device`.
+
+    Shared by `run_bfb_many` (bulk cases) and `run_sc_bfb_many`
+    (single-cell samples, engine/sc.py)."""
     solutions: Dict[tuple, object] = {}
     if flat and solver == "auto":
         # settle small and mid-size programs exactly on the host first,
@@ -818,18 +829,68 @@ def solve_programs_batch(
                     remaining_index.append(key)
         flat, index = remaining, remaining_index
     if flat and solver in ("device", "auto"):
-        from ambigram_tpu_torch.solver.search import solve_device_batch
+        # programs above the mid-size cut search per case (the dense-move
+        # sharded step is memory-hostile there); with a single case slot
+        # everything does, since the stacked greedy step buys nothing
+        # without case parallelism. The stacked pass is submitted to the
+        # pool first, so it runs while the big cases search.
+        from ambigram_tpu_torch.parallel.mesh import make_mesh
+        from ambigram_tpu_torch.solver.search import resolve_device, solve_device, solve_device_batch
 
-        per_case_lns = _per_case_lns_budget(len(flat), min(4, len(flat)))
-        if len(flat) > 1:
-            # deep queue on one device: case-stack same-shape groups,
-            # then auto's host tail per case; the JAX package gives one
-            # device's leg max(2, 8 // 1) host-tail threads
-            res = solve_device_batch(flat, device=device, lns_budget=per_case_lns, post_workers=8)
-            for key, prog, r in zip(index, flat, res):
-                solutions[key] = _post_big_auto(prog, r, solver)
+        if mesh is None:
+            mesh = make_mesh(devices=[resolve_device(device)])
+        n_case_slots = mesh.shape[0]
+        big_cut = AUTO_EXACT_FIRST_MAX_VARS if n_case_slots > 1 else 0
+        big = [(key, prog) for key, prog in zip(index, flat) if prog.num_vars > big_cut]
+        rest = [(key, prog) for key, prog in zip(index, flat) if prog.num_vars <= big_cut]
+        devices = mesh.flat()
+        workers = min(4, len(big)) if big else 0
+        per_case_lns = _per_case_lns_budget(len(big), max(workers, 1))
+
+        if len(big) > 1 and (len(devices) == 1 or len(big) > 2 * len(devices)):
+            # deep queue: case-stack same-shape groups into one search per
+            # device leg (round-robin split), then auto's host tail per
+            # case; each leg's thread runs max(2, 8 // legs) tail threads
+            n_legs = min(len(devices), len(big))
+            chunks = [big[k::n_legs] for k in range(n_legs)]
+            leg_post_workers = max(2, 8 // n_legs)
+
+            def _stacked_leg(leg_idx):
+                items = chunks[leg_idx]
+                res_leg = solve_device_batch(
+                    [prog for _, prog in items],
+                    device=devices[leg_idx],
+                    lns_budget=per_case_lns,
+                    post_workers=leg_post_workers,
+                )
+                return [(key, _post_big_auto(prog, res, solver)) for (key, prog), res in zip(items, res_leg)]
+
+            with ThreadPoolExecutor(max_workers=n_legs + (1 if rest else 0)) as pool:
+                stack_fut = pool.submit(_solve_stacked, rest, solver, mesh) if rest else None
+                for leg in pool.map(_stacked_leg, range(n_legs)):
+                    for key, sol in leg:
+                        solutions[key] = sol
+                if stack_fut is not None:
+                    solutions.update(stack_fut.result())
         else:
-            solutions[index[0]] = _solve(flat[0], solver, device, lns_budget=per_case_lns)
+            # per-case searches, round-robin over the mesh's devices on a
+            # thread pool: case i's host work (LP seeding, LNS) overlaps
+            # case j's search; each case's seeds are fixed, so the results
+            # do not depend on the interleaving
+            def _solve_big(item):
+                k, (key, prog) = item
+                dev = devices[k % len(devices)]
+                if solver == "auto":
+                    return key, _solve(prog, "auto", dev, lns_budget=per_case_lns)
+                return key, solve_device(prog, device=dev, lns_budget=per_case_lns)
+
+            with ThreadPoolExecutor(max_workers=max(workers, 1) + (1 if rest else 0)) as pool:
+                stack_fut = pool.submit(_solve_stacked, rest, solver, mesh) if rest else None
+                if big:
+                    for key, sol in pool.map(_solve_big, enumerate(big)):
+                        solutions[key] = sol
+                if stack_fut is not None:
+                    solutions.update(stack_fut.result())
         flat, index = [], []
     if flat:
         from ambigram_tpu_torch.solver.exact import solve_exact
@@ -859,6 +920,90 @@ def _post_big_auto(prog: BfbProgram, res, solver: str):
                 return eres
             return _auto_post(prog, res, [eres], tried_exact=True)
     return _auto_post(prog, res)
+
+
+def _solve_stacked(items, solver: str, mesh) -> Dict[tuple, object]:
+    """The mid-size leg of `solve_programs_batch`: one stacked
+    case-sharded pass (`solve_cases_sharded`) over `items` ([(key, prog),
+    ...]) on `mesh`, then a threaded host polish/certify/fallback per
+    incumbent on min(4, n) workers. Runs inside the batch's thread pool
+    so its device pass overlaps the big-case searches."""
+    from ambigram_tpu_torch.parallel.mesh import solve_cases_sharded
+    from ambigram_tpu_torch.solver.exact import SolveResult, solve_exact
+    from ambigram_tpu_torch.solver.host import certified_bound, lp_lower_bound
+    from ambigram_tpu_torch.solver.lns import lns_polish
+    from ambigram_tpu_torch.solver.native_bnb import solve_native
+
+    flat = [prog for _, prog in items]
+    index = [key for key, _ in items]
+    best = solve_cases_sharded(flat, mesh=mesh)
+    # the same global LNS wall-clock policy as the big-case branch
+    post_workers = min(4, max(1, len(flat)))
+    per_case_lns = _per_case_lns_budget(len(flat), post_workers)
+
+    def _post_one(args):
+        """Host polish/certify/fallback for one sharded incumbent, on a
+        thread pool (HiGHS and the native B&B release the GIL)."""
+        key, prog, x = args
+        eps = float(prog.residual_objective(x.astype(np.float64)))
+        vio = float(prog.hard_violation(x.astype(np.float64)))
+        lb = None
+        if vio != 0.0 or eps != 0.0:
+            # LNS window polish on the sharded incumbent: recovers the
+            # last epsilon the dense-move step leaves behind and repairs
+            # violated rows, often reaching the LP certificate
+            lb = lp_lower_bound(prog)
+            tgt = certified_bound(prog, lb) if lb is not None else None
+            x_p, eps_p, vio_p = lns_polish(prog, x.astype(np.int64), target=tgt, time_budget=per_case_lns)
+            if (vio_p, eps_p) < (vio, eps):
+                x, eps, vio = x_p.astype(x.dtype), eps_p, vio_p
+        certified = False
+        if vio == 0.0:
+            if eps == 0.0:
+                # the objective is nonnegative: eps == 0 certifies itself
+                certified = True
+            else:
+                if lb is None:
+                    lb = lp_lower_bound(prog)
+                # the LP bound rounded to the epsilon lattice is the
+                # sharpest sound certificate
+                certified = lb is not None and eps <= certified_bound(prog, lb) + 1e-6
+        if certified:
+            return key, SolveResult(x=x, epsilon_sum=eps, objective=eps - prog.bias, status="optimal")
+        if solver == "auto":
+            warm = SolveResult(
+                x=x.astype(np.int64),
+                epsilon_sum=eps,
+                objective=eps - prog.bias,
+                status="heuristic" if vio == 0 else "error",
+            )
+            nres = solve_native(prog, warm=warm if vio == 0 else None, time_limit_s=10.0)
+            if nres is not None and nres.status in ("optimal", "infeasible"):
+                return key, nres
+            eres = solve_exact(prog, time_limit=60.0)
+            if eres.status in ("optimal", "infeasible"):
+                return key, eres
+            # no stage proved optimality: the best feasible incumbent
+            pool = [
+                c
+                for c in (warm, nres, eres)
+                if c is not None
+                and c.status == "heuristic"
+                and float(prog.hard_violation(c.x.astype(np.float64))) == 0.0
+            ]
+            return key, (min(pool, key=lambda c: c.epsilon_sum) if pool else eres)
+        return key, SolveResult(
+            x=x,
+            epsilon_sum=eps,
+            objective=eps - prog.bias,
+            status="heuristic" if vio == 0 else "error",
+        )
+
+    out: Dict[tuple, object] = {}
+    with ThreadPoolExecutor(max_workers=post_workers) as pool_ex:
+        for key, sol in pool_ex.map(_post_one, list(zip(index, flat, best))):
+            out[key] = sol
+    return out
 
 
 def _case_store_key(lh_path: str) -> str:

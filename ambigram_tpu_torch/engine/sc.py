@@ -15,15 +15,15 @@ Port of ambigram_tpu/engine/sc.py; every function keeps the original's
 meaning line for line. Where the port differs:
 
 - `run_sc_bfb` and `run_sc_bfb_many` take a torch `device` (default
-  `cuda`; a CUDA device without a card raises) in place of the JAX
-  mesh;
+  `cuda`; a CUDA device without a card raises); `run_sc_bfb_many` also
+  takes JAX's `mesh` (None: the one device `device`);
 - `run_sc_bfb` solves each block program with the port's
   `pipeline._solve(sc_prog, solver, device)`, timed under the `solve`
   phase, and each clone's replay under the `replay` phase, as the
   port's `run_bfb` times its own;
 - `run_sc_bfb_many` solves all block programs with the port's
-  `solve_programs_batch(flat, index, solver=solver, device=device)`,
-  which case-stacks same-interval block programs into one search.
+  `solve_programs_batch(flat, index, solver=solver, device=device,
+  mesh=mesh)`, which case-stacks same-interval block programs into one search.
 """
 
 from __future__ import annotations
@@ -250,10 +250,12 @@ def run_sc_bfb_many(
     out=None,
     result_store: Optional[str] = None,
     ledger_dir: Optional[str] = None,
+    mesh=None,
 ) -> List[ScBfbResult]:
     """Batch single-cell pipeline: every sample's block programs are
     solved through the shared batch solver (the exact prepass, then
-    case-stacked searches on `device` — pipeline.solve_programs_batch),
+    case-stacked searches on `mesh`, by default the one device `device`
+    — pipeline.solve_programs_batch),
     then each sample's host-side replay completes independently.
 
     `samples`: [{"lh_paths": "a.lh,b.lh", "edges": "..."}, ...].
@@ -298,7 +300,7 @@ def run_sc_bfb_many(
             if prog is not None:
                 flat.append(prog)
                 index.append((i, n))
-    solutions = solve_programs_batch(flat, index, solver=solver, device=device)
+    solutions = solve_programs_batch(flat, index, solver=solver, device=device, mesh=mesh)
 
     # per-sample replay on a thread pool with order-preserving output
     # buffers (same pattern as pipeline.run_bfb_many — the K per-clone

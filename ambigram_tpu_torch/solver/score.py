@@ -30,6 +30,7 @@ import contextlib
 import ctypes
 import dataclasses
 import math
+import threading
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -42,6 +43,11 @@ PENALTY = 1024.0  # dominates any achievable residual for in-range programs
 _BIG = 3.0e38  # finite stand-in for +-inf bounds
 
 _LEAVES = ("H", "lb", "ub", "x_ub", "H8", "lb_raw", "ub_raw", "w")
+
+# guards the kernels' launch counts: the batch pipeline's round-robin
+# searches launch K1 from several threads at once, and += is a
+# read-modify-write
+_COUNT_LOCK = threading.Lock()
 
 
 def _round_up(x: int, m: int) -> int:
@@ -409,7 +415,8 @@ def score_rows(
     else its f32 path (H). X must hold the search's candidates: integers
     in [0, x_ub]. CPU tensors take the plain version.
     `score_rows.launches` counts the kernel's launches, and
-    `score_rows.int8_launches` and `score_rows.f32_launches` each path's."""
+    `score_rows.int8_launches` and `score_rows.f32_launches` each path's
+    (under a lock: several threads may launch at once)."""
     H, lb, ub = st.H, st.lb, st.ub
     if X.dim() not in (2, 3) or H.dim() != X.dim() or X.shape[-1] != H.shape[-1] or (
         X.dim() == 3 and X.shape[0] != H.shape[0]
@@ -490,12 +497,19 @@ def score_rows(
             "score_rows kernel launch failed: %s (cudaError %d)"
             % (lib.score_rows_error_string(err).decode(), err)
         )
-    score_rows.launches += 1
-    if planes:
-        score_rows.int8_launches += 1
-    else:
-        score_rows.f32_launches += 1
+    _count_k1_launch(planes)
     return scores, hx
+
+
+def _count_k1_launch(planes: int) -> None:
+    """Add one launch of K1 on its int8 path (planes > 0) or its f32
+    path to `score_rows`'s counts."""
+    with _COUNT_LOCK:
+        score_rows.launches += 1
+        if planes:
+            score_rows.int8_launches += 1
+        else:
+            score_rows.f32_launches += 1
 
 
 score_rows.launches = 0
@@ -634,7 +648,8 @@ def chained_score(
         raise RuntimeError(
             "chained_score kernel launch failed: %s (error %d)" % (lib.chained_score_error_string(err).decode(), err)
         )
-    chained_score.launches += 1
+    with _COUNT_LOCK:
+        chained_score.launches += 1
     if want_x:
         return checksum, torch.cat([head, X[:, _HEAD:]], dim=1)
     return checksum
@@ -645,5 +660,6 @@ chained_score.launches = 0
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch counts to 0."""
-    score_rows.launches = score_rows.int8_launches = score_rows.f32_launches = 0
-    chained_score.launches = 0
+    with _COUNT_LOCK:
+        score_rows.launches = score_rows.int8_launches = score_rows.f32_launches = 0
+        chained_score.launches = 0

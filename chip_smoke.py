@@ -90,13 +90,37 @@ and prints no result line:
 15. the port's golden suite, `python -m
    ambigram_tpu_torch.scripts.golden_suite --solver device --device
    cuda`, in process: every check ok, and K1 launched;
-16. a JSON line describing the kernels, then the result line
+16. the sharded search step (`parallel.mesh.sharded_step`) on the bench
+   batch's S=32 seed-200 program and its noise-free twin, stacked as two
+   cases, pop 32 and all 2 Vp + 1 = 2305 moves: one step on a logical
+   (2, 2) mesh of the card (two case slots, two row shards each) and on
+   (1, 1), against the same step with K1's plain version: X' and the
+   scores bitwise equal on the twin, the scores within rtol 1e-5 on the
+   noisy case, every row-shard launch of K1 on its int8 path; the ms per
+   step and the peak device memory; then K1's time at one row shard's
+   launch (73,760 candidates, half the rows) beside its plain version,
+   `torch.matmul` and the bound;
+17. `solve_cases_sharded` on the bench proxy leg's 8 cases (S=16, seeds
+   400-407, noise 0) at its budgets (pop 8, 12 steps, 2 rounds) over
+   logical meshes (1,1), (1,2), (2,2) and (4,2) of the card: best_x
+   identical across meshes, eps_sum and seconds per mesh;
+18. `run_bfb_many(solver="device")` on phase 8's four cases under a
+   logical (2, 2) mesh (two case slots): the two S=32 programs through
+   the stacked sharded pass, the two S=48 programs through per-case
+   searches round-robin over the mesh; every case prints a path whose
+   solution has hard violation 0;
+19. with two cards or more, phases 16 and 17 over distinct cards, equal
+   to the same mesh shape on one card; with one card a line says the
+   phase was skipped;
+20. a JSON line describing the kernels, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Every launch count in the kernels line comes from the main paths (the
 slice, the chain leg, the manifest, the single-cell slice, the sc:
-manifest, the S=64 slice and the golden suite), each driven with the
-counts set to 0 just before it and read just after.
+manifest, the S=64 slice, the golden suite, the sharded solves of phase
+17 and the mesh batch of phase 18), each driven with the counts set to 0
+just before it and read just after; the row-shard entry counts phase
+17's launches, every one of which is a row shard's.
 """
 
 from __future__ import annotations
@@ -126,28 +150,19 @@ SC_MANIFEST_SEEDS = (3, 4)
 SC_EPS_BAR = 8.0  # the host MILP's optimum (HiGHS) on the seed-3 block program
 S64_EPS_BAR = 3.78  # the JAX device search at S=64, two decimals (docs/bench_big.json)
 DEVICE = "cuda"
+BATCH_S32 = dict(seed=200, n_segments=32, rounds=5, mode="process")  # case 0 of the bench's batch
+PROXY_BUDGETS = dict(pop=8, steps=12, rounds=2)  # the bench proxy leg's shard budgets
+PROXY_MESHES = ((1, 1), (1, 2), (2, 2), (4, 2))
 # NVIDIA H100 SXM data sheet (dense, at 700 W): the bounds' peaks
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+F32_OPS_PER_S = 67e12  # float32 outside the tensor cores (K1's f32 path is FFMA)
 L2_FLUSH_BYTES = 128 << 20  # more than the card's 50 MB L2
 HOST_LEAD_CYCLES = 1_000_000  # about 0.5 ms of spin, longer than the host takes to queue a call
 
 
 def log(*parts) -> None:
     print(*parts, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True,
-        text=True,
-        check=True,
-        timeout=60,
-    ).stdout.strip()
-    if not out:
-        raise RuntimeError("nvidia-smi reported no GPU")
-    return out
 
 
 def simulate_case(workdir: str, noise: float) -> str:
@@ -233,18 +248,25 @@ def host_us(fn, iters: int = 200) -> float:
     return (t1 - t0) / iters * 1e6
 
 
-def bound_ms(bytes_moved: float, ops: float):
+def bound_ms(bytes_moved: float, ops: float, ops_per_s: float = INT8_OPS_PER_S):
     """The least time the card could take: (ms, "bytes" or "operations")."""
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / ops_per_s
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def k1_bound(st, B: int, planes: int = 1):
-    """K1's int8 path at one case: H8 and the row vectors read once, X
-    read once, hx and the scores written once; 2 B Rows Vp int8
-    operations per u8 plane of the candidates."""
-    rows, vp = st.H8.shape
-    bytes_moved = rows * vp + 3 * rows * 4 + B * vp * 4 + B * rows * 4 + B * 4
+def k1_bound(st, B: int, planes: int = 1, want_hx: bool = True):
+    """K1 at one case: the rows and the row vectors read once, X read
+    once, hx (when asked for) and the scores written once. On the int8
+    path (planes >= 1) the rows are H8, one byte each, and each u8 plane
+    of the candidates costs 2 B Rows Vp int8 operations; on the f32 path
+    (planes 0) the rows are H, four bytes each, and the product is
+    2 B Rows Vp f32 operations outside the tensor cores."""
+    rows, vp = st.H8.shape[-2:]
+    bytes_moved = rows * vp * (4 if planes == 0 else 1) + 3 * rows * 4 + B * vp * 4 + B * 4
+    if want_hx:
+        bytes_moved += B * rows * 4
+    if planes == 0:
+        return bound_ms(bytes_moved, 2.0 * B * rows * vp, F32_OPS_PER_S)
     return bound_ms(bytes_moved, 2.0 * planes * B * rows * vp)
 
 
@@ -308,7 +330,7 @@ def time_k1(label, st, X_pop, path, planes: int = 1):
         host_k = host_us(lambda: score_rows(st, X, want_hx=True))
         host_l = host_us(lambda: torch.matmul(X, H.t()))
         kern, plain, lib = (kern_a + kern_b) / 2, (plain_a + plain_b) / 2, (lib_a + lib_b) / 2
-        bnd, by = k1_bound(st, B, planes)
+        bnd, by = k1_bound(st, B, 0 if path == "f32" else planes)
         out[B] = (kern, plain, lib, bnd, by)
         log(
             "k1 time %s path %s B=%d rows=%d vp=%d (device, L2 flushed): kernel %.4f ms (%.4f, %.4f; %.4f back to back), "
@@ -371,7 +393,20 @@ def check_k1(progs: dict) -> dict:
         "bound_ms": bnd,
         "bound_by": by,
         "ms_b1000": timing[1000][0],
-        "f32_path_ms": f32_timing[32][0],
+        "plain_ms_b1000": timing[1000][1],
+        "library_ms_b1000": timing[1000][2],
+        "f32_path": {
+            "ms": f32_timing[32][0],
+            "plain_ms": f32_timing[32][1],
+            "library_ms": f32_timing[32][2],
+            "bound_ms": f32_timing[32][3],
+            "bound_by": f32_timing[32][4],
+            "ms_b1000": f32_timing[1000][0],
+            "plain_ms_b1000": f32_timing[1000][1],
+            "library_ms_b1000": f32_timing[1000][2],
+            "bound_ms_b1000": f32_timing[1000][3],
+            "bound_by_b1000": f32_timing[1000][4],
+        },
     }
 
 
@@ -763,7 +798,8 @@ def check_k1_block(prog) -> dict:
     torch.cuda.empty_cache()
     kern, plain, lib, bnd, by = timing[32]
     return {"max_abs_err": err, "ms": kern, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
-            "bound_by": by, "ms_b1000": timing[1000][0]}
+            "bound_by": by, "ms_b1000": timing[1000][0], "plain_ms_b1000": timing[1000][1],
+            "library_ms_b1000": timing[1000][2]}
 
 
 @contextlib.contextmanager
@@ -983,6 +1019,295 @@ def run_golden_suite() -> dict:
     return {"launches": launches, "int8_launches": int8_launches, "wall": wall}
 
 
+@contextlib.contextmanager
+def substitute(module, name: str, fn):
+    """Replace module.name by fn for the duration."""
+    old = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def logical_mesh(shape):
+    """A (case, model) mesh of that shape whose every shard is the one card."""
+    import torch
+
+    from ambigram_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(case_axis=shape[0], devices=[torch.device(DEVICE, 0)] * (shape[0] * shape[1]))
+
+
+def step_inputs(workdir: str):
+    """Phase 16's input: the bench batch's S=32 seed-200 program (noise
+    0.05) and its noise-free twin stacked as two cases, and a pool of 32
+    search-like candidates for each."""
+    import numpy as np
+
+    from ambigram_tpu_torch.engine.pipeline import extract_programs
+    from ambigram_tpu_torch.parallel.mesh import stack_cases
+    from ambigram_tpu_torch.scripts.simulate import simulate_bfb_case, write_case
+
+    progs = []
+    for noise in (0.05, 0.0):
+        case = simulate_bfb_case(noise=noise, **BATCH_S32)
+        progs.append(extract_programs(write_case(case, os.path.join(workdir, "b32_noise%g" % noise))["lh"])[0])
+    st = stack_cases(progs)
+    x_ub = st.x_ub.numpy()
+    X = np.stack([population(p, x_ub[g], 32, seed=g) for g, p in enumerate(progs)])
+    return progs, st, X
+
+
+def run_step(st, X, mesh, plain: bool = False, reps: int = 3):
+    """One sharded step on `mesh` from X, `reps` times on the same input:
+    (X', scores, ms per step, peak device bytes, K1 launches per step by
+    path). With `plain` the row shards score through K1's plain version."""
+    import torch
+
+    from ambigram_tpu_torch.parallel import mesh as mesh_mod
+    from ambigram_tpu_torch.solver.score import reset_launch_counts, score_rows, score_rows_plain
+
+    cases = mesh_mod.shard_cases(st, mesh)
+    step = mesh_mod.sharded_step(mesh)
+    Xj = cases.put(X)
+    scorer = (lambda shard, Xs: score_rows_plain(shard, Xs.contiguous())[0]) if plain else mesh_mod._local_score
+    with substitute(mesh_mod, "_local_score", scorer):
+        Xo, So = step(cases, Xj)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            Xo, So = step(cases, Xj)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / reps * 1e3
+    launches = (score_rows.launches // reps, score_rows.int8_launches // reps)
+    peak = torch.cuda.max_memory_allocated()
+    return cases.gather(Xo), cases.gather(So), ms, peak, launches
+
+
+def check_sharded_step(workdir: str) -> dict:
+    """Phase 16: one step of the sharded search on a logical (2, 2) mesh
+    of the card and on (1, 1), all 2 Vp + 1 moves, pop 32: X' and the
+    scores bitwise equal across meshes and to the plain version on the
+    noise-free twin, the scores within K1_RTOL on the noisy case; every
+    row-shard launch of K1 on its int8 path. Then K1's time at one row
+    shard's launch beside its plain version, torch.matmul and the bound.
+    Returns the kernels-line numbers of the row shards."""
+    import numpy as np
+    import torch
+
+    from ambigram_tpu_torch.parallel.mesh import shard_cases
+    from ambigram_tpu_torch.solver.score import k1_planes, score_rows, score_rows_plain
+
+    progs, st, X = step_inputs(workdir)
+    vp = st.H.shape[-1]
+    log("step: V=%d rows=%d vp=%d moves=%d pop=%d: %d candidates per case per step"
+        % (progs[0].num_vars, st.H.shape[-2], vp, 2 * vp + 1, X.shape[1], X.shape[1] * (2 * vp + 1)))
+    runs = {}
+    for label, shape, plain in (("(2, 2)", (2, 2), False), ("(1, 1)", (1, 1), False), ("(1, 1) plain", (1, 1), True)):
+        Xo, So, ms, peak, (launches, int8_launches) = run_step(st, X, logical_mesh(shape), plain=plain)
+        runs[label] = (Xo, So)
+        log("step %s: %.3f ms per step, peak %.1f MB allocated, K1 launches per step %d (int8 path %d), "
+            "members moved %d of %d"
+            % (label, ms, peak / 2**20, launches, int8_launches, int((Xo != X).any(axis=2).sum()), X.shape[0] * X.shape[1]))
+        if not plain and (launches == 0 or int8_launches != launches):
+            raise AssertionError("the step's row shards launched K1 %d times, %d on its int8 path" % (launches, int8_launches))
+    err = 0.0
+    ref_X, ref_S = runs["(1, 1) plain"]
+    for label in ("(2, 2)", "(1, 1)"):
+        Xo, So = runs[label]
+        for g, name in ((1, "twin"), (0, "noisy")):
+            same_x, same_s = np.array_equal(Xo[g], ref_X[g]), np.array_equal(So[g], ref_S[g])
+            rel = float((np.abs(So[g] - ref_S[g]) / np.maximum(np.abs(ref_S[g]), 1.0)).max())
+            log("step %s %s case: X' %s, scores %s against the plain (1, 1) step"
+                % (label, name, "bitwise equal" if same_x else "DIFFERS",
+                   "bitwise equal" if same_s else "rel %.3g" % rel))
+            if name == "twin" and not (same_x and same_s):
+                raise AssertionError("the step on %s is not bitwise on the noise-free twin" % label)
+            if rel > K1_RTOL:
+                raise AssertionError("the step's scores on %s are off by rel %g (%s)" % (label, rel, name))
+            if name == "noisy":
+                err = max(err, float(np.abs(So[g] - ref_S[g]).max()))
+    if not (np.array_equal(runs["(2, 2)"][0][1], runs["(1, 1)"][0][1])
+            and np.array_equal(runs["(2, 2)"][1][1], runs["(1, 1)"][1][1])):
+        raise AssertionError("the (2, 2) and (1, 1) steps differ on the twin")
+
+    # K1 at the launch a row shard of the (2, 2) mesh makes: one case, the
+    # candidates of all moves of its pool, half the rows
+    shard = shard_cases(st, logical_mesh((2, 2))).shards[0][0]
+    moves = np.concatenate([np.zeros((1, vp), np.float32), np.eye(vp, dtype=np.float32), -np.eye(vp, dtype=np.float32)])
+    x_ub = st.x_ub[0].numpy()
+    cand = torch.as_tensor(np.clip(X[0][:, None, :] + moves[None], 0.0, x_ub)).reshape(1, -1, vp).to(DEVICE)
+    del moves
+    B = cand.shape[1]
+    if k1_planes(shard) != 1:
+        raise AssertionError("the row shard should take K1's one-plane int8 path")
+    s_k, _ = score_rows(shard, cand)
+    s_p, _ = score_rows_plain(shard, cand)
+    torch.cuda.synchronize()
+    rel = float(((s_k - s_p).abs() / s_p.abs().clamp(min=1.0)).max())
+    shard_err = float((s_k - s_p).abs().max())
+    if rel > K1_RTOL:
+        raise AssertionError("K1 on the row shard is off its plain version by rel %g" % rel)
+    H = shard.H[0]
+    kern = cuda_ms(lambda: score_rows(shard, cand), iters=10)
+    plain = cuda_ms(lambda: score_rows_plain(shard, cand), iters=10)
+    lib = cuda_ms(lambda: torch.matmul(cand[0], H.t()), iters=10)
+    bnd, by = k1_bound(shard, B, 1, want_hx=False)
+    log("k1 row shard B=%d rows=%d vp=%d: scores %s (max_abs_err %r); kernel %.4f ms, plain %.4f ms, "
+        "torch.matmul f32 %.4f ms, bound %.4f ms (%s)"
+        % (B, H.shape[0], vp, "bitwise equal" if torch.equal(s_k, s_p) else "rel %.3g" % rel, shard_err, kern, plain,
+           lib, bnd, by))
+    del cand, s_k, s_p
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max(err, shard_err), "ms": kern, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
+            "bound_by": by, "shape": [1, B, H.shape[0], vp]}
+
+
+def proxy_programs(workdir: str):
+    """The programs of the bench proxy leg's 8 cases, as its script reads
+    them (every .lh file of the directory, sorted)."""
+    import glob
+
+    from ambigram_tpu_torch.bench import proxy_case_dir
+    from ambigram_tpu_torch.engine.pipeline import extract_programs
+
+    d = os.path.join(workdir, "proxy")
+    os.makedirs(d, exist_ok=True)
+    proxy_case_dir(d)
+    return [p for lh in sorted(glob.glob(os.path.join(d, "*.lh"))) for p in extract_programs(lh) if p is not None]
+
+
+def run_sharded_solve(progs, meshes) -> dict:
+    """`solve_cases_sharded` on the programs at the proxy's budgets over
+    each mesh: one best_x across meshes; returns {mesh label: (best_x,
+    seconds, K1 launches, int8 launches)}."""
+    import numpy as np
+    import torch
+
+    from ambigram_tpu_torch.parallel.mesh import solve_cases_sharded
+    from ambigram_tpu_torch.solver.score import reset_launch_counts, score_rows
+
+    out = {}
+    for label, mesh in meshes:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        best = solve_cases_sharded(progs, mesh=mesh, **PROXY_BUDGETS)
+        for d in set(mesh.flat()):
+            torch.cuda.synchronize(d)
+        secs = time.perf_counter() - t0
+        out[label] = (best, secs, score_rows.launches, score_rows.int8_launches)
+        eps = sum(float(p.residual_objective(x.astype(np.float64))) for p, x in zip(progs, best))
+        vio = max(float(p.hard_violation(x.astype(np.float64))) for p, x in zip(progs, best))
+        log("sharded solve %s mesh %s: %d cases, %.3f s, eps_sum %r, max hard_violation %r, K1 launches %d (int8 path %d)"
+            % (label, mesh.shape, len(progs), secs, eps, vio, score_rows.launches, score_rows.int8_launches))
+    first = next(iter(out.values()))[0]
+    for label, (best, *_rest) in out.items():
+        if not all(np.array_equal(a, b) for a, b in zip(first, best)):
+            raise AssertionError("best_x on %s differs from %s" % (label, next(iter(out))))
+    return out
+
+
+def run_proxy_meshes(workdir: str) -> dict:
+    """Phase 17: `solve_cases_sharded` on the proxy's 8 cases (S=16,
+    seeds 400-407) at budgets 8/12/2 over logical meshes (1,1), (1,2),
+    (2,2) and (4,2) of the card: best_x identical across meshes, every K1
+    launch on its int8 path."""
+    progs = proxy_programs(workdir)
+    out = run_sharded_solve(progs, [(str(shape), logical_mesh(shape)) for shape in PROXY_MESHES])
+    launches = sum(v[2] for v in out.values())
+    int8_launches = sum(v[3] for v in out.values())
+    if launches == 0 or int8_launches != launches:
+        raise AssertionError("the sharded solves launched K1 %d times, %d on its int8 path" % (launches, int8_launches))
+    return {"launches": launches, "int8_launches": int8_launches, "wall": sum(v[1] for v in out.values())}
+
+
+def run_mesh_batch(workdir: str, paths) -> dict:
+    """Phase 18: `run_bfb_many(--solver device)` on the four batch cases
+    of phase 8 under a logical mesh with two case slots ((2, 2) of the
+    card): the two S=32 programs go through the stacked sharded pass
+    `_solve_stacked`, the two S=48 programs through per-case searches
+    round-robin over the mesh's devices; every case prints a path whose
+    solution has hard violation 0."""
+    import numpy as np
+    import torch
+
+    from ambigram_tpu_torch import bench
+    from ambigram_tpu_torch.engine import pipeline
+    from ambigram_tpu_torch.engine.pipeline import extract_programs
+    from ambigram_tpu_torch.solver import search
+    from ambigram_tpu_torch.solver.score import reset_launch_counts, score_rows
+    from ambigram_tpu_torch.utils.profiling import GLOBAL
+
+    mesh = logical_mesh((2, 2))
+    buf = io.StringIO()
+    log("mesh batch: run_bfb_many(%d cases, solver='device', mesh=%s of %s)" % (len(paths), mesh.shape, DEVICE))
+    with spy(pipeline, "_solve_stacked", []) as stacked, spy(search, "solve_device", []) as singles:
+        GLOBAL.reset()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        results = pipeline.run_bfb_many(paths, solver="device", device=DEVICE, mesh=mesh, out=buf)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, int8_launches = score_rows.launches, score_rows.int8_launches
+    lines = buf.getvalue().splitlines()
+    violations = bench.case_violations(paths, results)
+    for path, r in zip(paths, results):
+        prog = extract_programs(path)[0]
+        x = np.asarray(r.chromosomes[0].element_cn, dtype=np.float64)
+        log("mesh batch case %s: V=%d eps %r, hard_violation %r, certified %s"
+            % (os.path.basename(path), prog.num_vars, float(prog.residual_objective(x)), float(prog.hard_violation(x)),
+               r.chromosomes[0].certified))
+        if not r.path_strings or not all(p and p in lines for p in r.path_strings):
+            raise AssertionError("no path printed for %s" % path)
+    stacked_vars = sorted(p.num_vars for args, _ in stacked for _, p in args[0])
+    single_vars = sorted(args[0].num_vars for args, _ in singles)
+    log("mesh batch: %d cases, wall %.3f s, stacked pass %r, round-robin searches %r, K1 launches %d (int8 path %d)"
+        % (len(paths), wall, stacked_vars, single_vars, launches, int8_launches))
+    log_phases(("solve.tensors", "solve.lp_bound", "score", "solve.lns", "replay"))
+    if max(violations) != 0.0:
+        raise AssertionError("a mesh batch solution violates hard rows: %r" % violations)
+    if len(stacked) != 1 or len(stacked_vars) != 2 or max(stacked_vars) > pipeline.AUTO_EXACT_FIRST_MAX_VARS:
+        raise AssertionError("expected the two S=32 programs in one stacked pass, got %r" % stacked_vars)
+    if len(single_vars) != 2 or min(single_vars) <= pipeline.AUTO_EXACT_FIRST_MAX_VARS:
+        raise AssertionError("expected the two S=48 programs searched round-robin, got %r" % single_vars)
+    if launches < 1 or int8_launches != launches:
+        raise AssertionError("K1 launched %d times (%d int8) under the mesh" % (launches, int8_launches))
+    return {"launches": launches, "int8_launches": int8_launches, "wall": wall}
+
+
+def check_distinct_cards(workdir: str) -> None:
+    """Phase 19: phases 16 and 17 over distinct cards (a (2, 2) mesh of
+    four, or (1, 2) of two), equal to the same mesh shape on one card.
+    With one card it says so and returns: that is no failure."""
+    import numpy as np
+    import torch
+
+    from ambigram_tpu_torch.parallel.mesh import make_mesh, visible_devices
+
+    cards = visible_devices()
+    if len(cards) < 2:
+        log("distinct cards: skipped, %d card visible (the phase needs two)" % len(cards))
+        return
+    n = 4 if len(cards) >= 4 else 2
+    distinct = make_mesh(devices=cards[:n])
+    logical = make_mesh(devices=[cards[0]] * n)
+    progs, st, X = step_inputs(workdir)
+    Xd, Sd, ms_d, _, _ = run_step(st, X, distinct)
+    Xl, Sl, ms_l, _, _ = run_step(st, X, logical)
+    log("distinct cards %s of %s: step %.3f ms (one card %.3f ms); X' %s, scores %s against one card"
+        % (distinct.shape, ",".join(map(str, distinct.flat())), ms_d, ms_l,
+           "bitwise equal" if np.array_equal(Xd, Xl) else "DIFFERS", "bitwise equal" if np.array_equal(Sd, Sl) else "DIFFER"))
+    if not (np.array_equal(Xd[1], Xl[1]) and np.array_equal(Sd[1], Sl[1])):
+        raise AssertionError("the step on distinct cards differs from one card on the twin")
+    rel = float((np.abs(Sd - Sl) / np.maximum(np.abs(Sl), 1.0)).max())
+    if rel > K1_RTOL:
+        raise AssertionError("the step's scores on distinct cards are off one card's by rel %g" % rel)
+    run_sharded_solve(proxy_programs(workdir), [("distinct", distinct), ("one card", logical)])
+
+
 def sass_counts(path: str) -> dict:
     """Tensor-core instructions in a library's SASS (cuobjdump), by
     mnemonic: IMMA is mma.sync on integers, [HIQ]GMMA the warpgroup
@@ -1028,6 +1353,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    from ambigram_tpu_torch.bench import card_line
+
     log(card_line())
     log("torch %s, cuda %s, python %s" % (torch.__version__, torch.version.cuda, sys.version.split()[0]))
     build_kernels()
@@ -1063,8 +1390,13 @@ def main() -> int:
         k1_big = check_k1_two_planes(workdir)
         s64 = run_s64_slice(workdir)
         golden = run_golden_suite()
+        step = check_sharded_step(workdir)
+        proxy = run_proxy_meshes(workdir)
+        mesh_batch = run_mesh_batch(workdir, paths)
+        check_distinct_cards(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    main_paths = (sl, batch, sc_slice, sc_batch, s64, golden, proxy, mesh_batch)
 
     kernels_line = {
         "kernels": [
@@ -1073,18 +1405,36 @@ def main() -> int:
                 "route": "cuda",
                 "source": "ambigram_tpu_torch/csrc/score_rows.cu",
                 "replaces": "ambigram_tpu/solver/score.py:435",
-                "launches": sum(r["launches"] for r in (sl, batch, sc_slice, sc_batch, s64, golden)),
+                "launches": sum(r["launches"] for r in main_paths),
                 "max_abs_err": max([k1["max_abs_err"], k1_block["max_abs_err"], k1_big["max_abs_err"]] + k1_err),
                 "ms": k1["ms"],
                 "plain_ms": k1["plain_ms"],
                 "bound_ms": k1["bound_ms"],
                 "bound_by": k1["bound_by"],
                 "library_ms": k1["library_ms"],
-                "int8_launches": sum(r["int8_launches"] for r in (sl, batch, sc_slice, sc_batch, s64, golden)),
+                "int8_launches": sum(r["int8_launches"] for r in main_paths),
                 "ms_b1000": k1["ms_b1000"],
-                "f32_path_ms": k1["f32_path_ms"],
+                "plain_ms_b1000": k1["plain_ms_b1000"],
+                "library_ms_b1000": k1["library_ms_b1000"],
+                "f32_path": k1["f32_path"],
                 "sc_block": k1_block,
                 "big_s96": k1_big,
+            },
+            {
+                "name": "score_rows (row shards of the sharded step)",
+                "route": "cuda",
+                "source": "ambigram_tpu_torch/csrc/score_rows.cu",
+                "replaces": "ambigram_tpu/solver/score.py:435",
+                "serves": "ambigram_tpu/parallel/mesh.py:129 (_local_score)",
+                "launches": proxy["launches"],
+                "max_abs_err": step["max_abs_err"],
+                "ms": step["ms"],
+                "plain_ms": step["plain_ms"],
+                "bound_ms": step["bound_ms"],
+                "bound_by": step["bound_by"],
+                "library_ms": step["library_ms"],
+                "shape": step["shape"],
+                "wall_s": {"sharded_solves": proxy["wall"], "mesh_batch": mesh_batch["wall"]},
             },
             {
                 "name": "chained_score",

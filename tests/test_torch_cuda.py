@@ -1,5 +1,7 @@
 """Card-only checks of the port: K1 and K2 on the GPU, the int8 scorer,
-the search, the batch path and the single-cell slice on cuda.
+the search, the batch path, the single-cell slice and the sharded step
+on logical meshes (and on distinct cards where there are several) on
+cuda.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither jax nor a test module that does, so it also runs where
@@ -343,3 +345,120 @@ def test_bench_big_leg_on_card(cuda_device):
     for leg in (s64, s96):
         assert leg["device"]["hard_violation"] == 0.0
         assert leg["k1_launches"]["f32"] == 0 and leg["k1_launches"]["int8"] == leg["k1_launches"]["all"] >= 1
+
+
+def proxy_programs(tmp_path):
+    """The bench proxy leg's 8 cases (S=16, seeds 400-407, noise 0:
+    integer targets, so every score is exact)."""
+    d = tmp_path / "proxy"
+    d.mkdir()
+    bench.proxy_case_dir(str(d))
+    return [extract_programs(str(d / ("sp%d.lh" % i)))[0] for i in range(8)]
+
+
+def _step(progs, devices, X, shape):
+    from ambigram_tpu_torch.parallel.mesh import make_mesh, shard_cases, sharded_step
+
+    mesh = make_mesh(case_axis=shape[0], devices=devices)
+    cases = shard_cases(stack_cases(progs), mesh)
+    Xo, So = sharded_step(mesh)(cases, cases.put(X))
+    return cases.gather(Xo), cases.gather(So)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2), (4, 2)])
+def test_sharded_step_on_logical_mesh_is_bitwise(cuda_device, tmp_path, shape):
+    """The sharded step on a logical mesh of the card (every shard on
+    cuda:0, K1's int8 path on each row shard) against the same step on
+    CPU labels (K1's plain version): X' and the scores bitwise equal on
+    the proxy's integer-target cases, every shard launch on the int8
+    path."""
+    from ambigram_tpu_torch.parallel.mesh import cpu_devices
+
+    progs = proxy_programs(tmp_path)
+    st = stack_cases(progs)
+    rng = np.random.default_rng(5)
+    x_ub = st.x_ub.numpy()
+    X = np.minimum(rng.integers(0, 3, size=(8, 8, x_ub.shape[1])).astype(np.float32), x_ub[:, None, :])
+    n = shape[0] * shape[1]
+    before, before_i8 = score_rows.launches, score_rows.int8_launches
+    Xc, Sc = _step(progs, [cuda_device] * n, X, shape)
+    launches = score_rows.launches - before
+    assert launches == 2 * n and score_rows.int8_launches - before_i8 == launches
+    Xp, Sp = _step(progs, cpu_devices(n), X, shape)
+    assert np.array_equal(Xc, Xp) and np.array_equal(Sc, Sp)
+    assert (Xc != X).any()
+
+
+def test_solve_cases_sharded_on_card_matches_cpu(cuda_device, tmp_path):
+    """`solve_cases_sharded` on a logical (2, 2) mesh of the card returns
+    the same best_x as on CPU labels, at the proxy's budgets."""
+    from ambigram_tpu_torch.parallel.mesh import cpu_devices, make_mesh, solve_cases_sharded
+
+    progs = proxy_programs(tmp_path)
+    card = solve_cases_sharded(progs, mesh=make_mesh(devices=[cuda_device] * 4), pop=8, steps=12, rounds=2)
+    cpu = solve_cases_sharded(progs, mesh=make_mesh(devices=cpu_devices(4)), pop=8, steps=12, rounds=2)
+    assert all(np.array_equal(a, b) for a, b in zip(card, cpu))
+
+
+def test_score_rows_counts_every_launch_across_threads(cuda_device, tmp_path):
+    """N threads x M launches of K1 count N * M, under a short switch
+    interval that would expose a lost update."""
+    import sys
+    import threading
+
+    prog = simulated_prog(tmp_path, seed=2, n_segments=10, mode="nested")
+    st = scoring_tensors(prog, cuda_device)
+    X = torch.zeros((32, st.H.shape[1]), dtype=torch.float32, device=cuda_device)
+    n_threads, m_calls = 8, 200
+    before = score_rows.launches
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [
+            threading.Thread(target=lambda: [score_rows(st, X) for _ in range(m_calls)]) for _ in range(n_threads)
+        ]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    torch.cuda.synchronize()
+    assert score_rows.launches - before == n_threads * m_calls
+
+
+def test_sharded_step_on_distinct_cards(cuda_device, tmp_path):
+    """With two cards or more: the step and `solve_cases_sharded` over
+    distinct cards equal the same mesh shape on one card (skips with one
+    card)."""
+    from ambigram_tpu_torch.parallel.mesh import make_mesh, solve_cases_sharded, visible_devices
+
+    cards = visible_devices()
+    if len(cards) < 2:
+        pytest.skip("needs two cards")
+    n = 4 if len(cards) >= 4 else 2
+    shape = (2, 2) if n == 4 else (1, 2)
+    progs = proxy_programs(tmp_path)
+    st = stack_cases(progs)
+    rng = np.random.default_rng(5)
+    x_ub = st.x_ub.numpy()
+    X = np.minimum(rng.integers(0, 3, size=(8, 8, x_ub.shape[1])).astype(np.float32), x_ub[:, None, :])
+    assert all(np.array_equal(a, b) for a, b in zip(_step(progs, cards[:n], X, shape), _step(progs, [cards[0]] * n, X, shape)))
+    got = solve_cases_sharded(progs, mesh=make_mesh(devices=cards[:n]), pop=8, steps=12, rounds=2)
+    want = solve_cases_sharded(progs, mesh=make_mesh(devices=[cards[0]] * n), pop=8, steps=12, rounds=2)
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.slow
+def test_bench_mesh_legs(cuda_device):
+    """The bench's multi-card legs (`AMBIGRAM_BENCH_SUITE=mesh`): the
+    16-case batch's device leg on one card and, with several cards, over
+    all of them, each 16/16 with no hard violation; the round-robin
+    searches on 1, 2 and 4 threads. Prints the leg's line."""
+    out = bench.bench_mesh()
+    print("multi_gpu_batch %s" % json.dumps(out))
+    for key in ("one_card", "all_cards"):
+        if key in out:
+            assert out[key]["solved"] == 16 and out[key]["max_hard_violation"] == 0.0
+    assert set(out["round_robin_4xS48"]) == {"threads1", "threads2", "threads4"}

@@ -208,6 +208,40 @@ def test_port_golden_suite_and_scripts_load_no_jax(tmp_path):
     assert "LOADED=\n" in proc.stdout, proc.stdout[-2000:]
 
 
+@pytest.mark.parametrize(
+    "code, expect",
+    [
+        ("from ambigram_tpu_torch.parallel.dryrun import main\nassert main(['4', '--device', 'cpu']) == 0\n",
+         "dryrun_multichip ok: mesh=(2, 2)"),
+        ("from ambigram_tpu_torch import bench\nbench.proxy_case_dir('.')\n"
+         "from ambigram_tpu_torch.scripts.scaling_proxy import main\n"
+         "assert main(['--cases', '.', '--mesh', '2', '--device', 'cpu']) == 0\n"
+         "from ambigram_tpu_torch.scripts import bench_docs\n"
+         "from ambigram_tpu_torch.parallel import distributed\n",
+         '"mesh": 2'),
+    ],
+    ids=["dryrun", "scaling_proxy_bench_docs_distributed"],
+)
+def test_port_multi_device_entry_points_load_no_jax(code, expect, tmp_path, monkeypatch):
+    """The dry run (n=4 on CPU labels: the sharded step, then run_bfb_many
+    under the mesh with a V > 2048 case), the scaling proxy's command
+    line (what the bench's proxy leg runs in each subprocess), bench_docs
+    and the distributed module load no module of jax, the JAX package or
+    __graft_entry__."""
+    code = "import sys\n" + code + (
+        "print('LOADED=%%s' %% ','.join(sorted(m for m in sys.modules if m.split('.')[0] in %r)))\n" % (FORBIDDEN,)
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(AMBIGRAM_SHARD_POP="4", AMBIGRAM_SHARD_STEPS="4", AMBIGRAM_SHARD_ROUNDS="1", OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=600
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert expect in proc.stdout
+    assert "LOADED=\n" in proc.stdout, proc.stdout[-2000:]
+
+
 def port_sources():
     """Every Python source of the port, with chip_smoke.py and the
     card-only test file, which run where JAX is not installed."""

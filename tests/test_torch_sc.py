@@ -423,12 +423,13 @@ def test_bench_sc_samples_are_the_jax_legs(tmp_path):
 
 @pytest.mark.parametrize(
     "mode, rc, message",
-    [("sc", 1, "needs an NVIDIA GPU"), ("big", 1, "needs an NVIDIA GPU"), ("proxy", 2, "not yet ported")],
+    [("sc", 1, "needs an NVIDIA GPU"), ("big", 1, "needs an NVIDIA GPU"), ("proxy", 2, "is not a mode of the bench")],
 )
 def test_bench_sc_mode_is_ported_and_needs_a_card(mode, rc, message, monkeypatch, capsys):
     """AMBIGRAM_BENCH_SUITE=sc and =big are ported modes: without a card
     they fail as the bench's other modes do, never running on the CPU; a
-    mode still to port (the scaling proxy) exits 2."""
+    value that is no mode (the scaling proxy runs in the default mode, as
+    in the JAX bench, and has no mode of its own) exits 2."""
     from ambigram_tpu_torch import bench
 
     if torch.cuda.is_available():
@@ -459,6 +460,7 @@ def test_bench_exit_code_follows_the_sc_leg(leg, rc, message, monkeypatch, capsy
     monkeypatch.setenv("AMBIGRAM_BENCH_SUITE", "sc")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "stub")
+    monkeypatch.setattr(bench, "card_line", lambda: "stub, 700.00 W")
     st = SimpleNamespace(H8=torch.zeros(4, 8, dtype=torch.int8))
     monkeypatch.setattr(bench, "build_workload", lambda device: (None, st, None))
     monkeypatch.setattr(bench, "bench_device", lambda st, X: (1.0, 0.0, "stub"))

@@ -19,6 +19,7 @@ import importlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -685,3 +686,114 @@ def test_golden_suite_on_cuda_without_card_fails(tmp_path):
     )
     assert proc.returncode != 0 and proc.stdout == ""
     assert "no CUDA device" in proc.stderr
+
+
+# ---------------------------------------------------------------- scaling_proxy
+
+
+@pytest.mark.parametrize("mesh", [1, 2])
+def test_scaling_proxy_matches_jax(mesh, tmp_path, monkeypatch):
+    """Both packages' `run_proxy` on the same cases (the JAX test's
+    recipe, budgets 4/4/1): the same programs, eps_sum and cases solved
+    (the port returns JAX's best_x); the port's mesh is that many
+    logical shards of one device, here the CPU."""
+    from ambigram_tpu.scripts import scaling_proxy as jsp
+    from ambigram_tpu_torch.scripts import scaling_proxy as tsp
+    from ambigram_tpu_torch.scripts.simulate import simulate_bfb_case, write_case
+
+    monkeypatch.setenv("AMBIGRAM_SHARD_POP", "4")
+    monkeypatch.setenv("AMBIGRAM_SHARD_STEPS", "4")
+    monkeypatch.setenv("AMBIGRAM_SHARD_ROUNDS", "1")
+    for i in range(2):
+        case = simulate_bfb_case(seed=500 + i, n_segments=10, rounds=3, mode="process", noise=0.0)
+        write_case(case, str(tmp_path / ("sp%d" % i)))
+    want = jsp.run_proxy(str(tmp_path), mesh)
+    got = tsp.run_proxy(str(tmp_path), mesh, device="cpu")
+    keys = ("mesh", "eps_sum", "solved", "n_programs")
+    assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
+    assert got["seconds"] > 0 and got["device"] == "cpu"
+
+
+def test_bench_scaling_proxy_needs_a_card():
+    from ambigram_tpu_torch import bench
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="needs an NVIDIA GPU|none is available"):
+        bench.bench_scaling_proxy()
+
+
+# ------------------------------------------------------------------ bench_docs
+
+PORT_LINES = [
+    {"metric": "bfb_candidates_scored_per_sec_per_chip", "value": 73528770.6, "unit": "candidates/s",
+     "vs_baseline": 2000.0, "kernel_path": "cuda-fused-int8",
+     "int8": {"achieved_tops": 650.5, "utilization_pct": 32.9, "peak_int8_tops": 1979.0},
+     "device": "NVIDIA H100 80GB HBM3", "card": "NVIDIA H100 80GB HBM3, 700.00 W"},
+    {"metric": "suite_seconds_large_cases", "cases": "4xS48 noise=0.05", "n_cases": 4,
+     "device": {"seconds": 33.0, "eps_sum": 35.48, "solved": 4}, "auto": {"seconds": 34.0, "eps_sum": 35.48, "solved": 4},
+     "exact": {"seconds": 120.0, "eps_sum": 35.48, "solved": 4}},
+    {"metric": "batch_throughput_cases_per_min", "cases": "16x mixed S32/S48 noise=0.05", "warmup_seconds": 119.0,
+     "batch_device": {"seconds": 118.0, "cases_per_min": 8.14, "solved": 16, "eps_sum": 900.75},
+     "serial_exact": {"seconds": 240.0, "cases_per_min": 4.0, "solved": 16, "eps_sum": 950.0}},
+    {"metric": "scaling_proxy_overhead", "mesh1": {"mesh": 1, "seconds": 0.03, "compile_plus_first_run_seconds": 1.2,
+     "eps_sum": 54.5, "solved": 8, "n_programs": 8, "cases_per_min": 16000.0, "sharding_overhead_pct_vs_mesh1": 0.0},
+     "mesh2": {"mesh": 2, "seconds": 0.04, "compile_plus_first_run_seconds": 0.1, "eps_sum": 54.5, "solved": 8,
+               "n_programs": 8, "cases_per_min": 12000.0, "sharding_overhead_pct_vs_mesh1": 33.3}},
+]
+
+
+def _bench_output(lines):
+    return "noise on stderr\n" + "\n".join(json.dumps(line) for line in lines) + "\nsuite done\n"
+
+
+def test_bench_docs_extracts_what_the_jax_script_extracts():
+    """The port's `extract_metrics` finds the same metric lines as the
+    JAX script's, in raw output and in a BENCH_r*.json artifact, and gives every
+    metric the card of the result line before it."""
+    from ambigram_tpu.scripts import bench_docs as jbd
+    from ambigram_tpu_torch.scripts import bench_docs as tbd
+
+    raw = _bench_output(PORT_LINES)
+    artifact = json.dumps({"rc": 0, "tail": raw, "parsed": PORT_LINES[0]})
+    for text in (raw, artifact):
+        got, want = tbd.extract_metrics(text), jbd.extract_metrics(text)
+        assert set(got) == set(want) == {line["metric"] for line in PORT_LINES}
+        assert {m["card"] for m in got.values()} == {"NVIDIA H100 80GB HBM3, 700.00 W"}
+    block = tbd.render_readme_block(tbd.extract_metrics(raw))
+    assert block.startswith(tbd.BEGIN) and block.endswith(tbd.END)
+    assert "| device | 33.0 | 35.48 | 4/4 |" in block and "| 2 | 0.04 | 0.1 | 12000.0 | 33.3% | 54.5 | 8/8 |" in block
+    assert block.count("on NVIDIA H100 80GB HBM3, 700.00 W") == 4
+    # a metric line with no card before it is not published
+    assert "Suite" not in tbd.render_readme_block(tbd.extract_metrics(_bench_output(PORT_LINES[1:2])))
+
+
+def test_bench_docs_writes_only_its_own_block(tmp_path):
+    """On a copy of README.md, the port's script rewrites only its marker
+    block: the JAX package's BENCH block and every other byte stay, docs/
+    is not touched, and a rerun on the same input is byte-identical."""
+    from ambigram_tpu_torch.scripts import bench_docs as tbd
+
+    readme = tmp_path / "README.md"
+    original = open(os.path.join(REPO, "README.md")).read()
+    readme.write_text(original)
+    out = tmp_path / "bench_out.txt"
+    out.write_text(_bench_output(PORT_LINES))
+    docs = {name: open(os.path.join(REPO, "docs", name), "rb").read() for name in sorted(os.listdir(os.path.join(REPO, "docs")))}
+    assert tbd.main([str(out), "--readme", str(readme)]) == 0
+    first = readme.read_text()
+    assert first != original
+    pattern = re.compile(re.escape(tbd.BEGIN) + r".*?" + re.escape(tbd.END), re.S)
+    assert pattern.sub("", first) == pattern.sub("", original)
+    jax_block = re.compile(r"<!-- BENCH:BEGIN.*?<!-- BENCH:END -->", re.S)
+    assert jax_block.findall(first) == jax_block.findall(original) and len(jax_block.findall(original)) == 1
+    assert tbd.main([str(out), "--readme", str(readme)]) == 0
+    assert readme.read_text() == first
+    assert {name: open(os.path.join(REPO, "docs", name), "rb").read() for name in sorted(os.listdir(os.path.join(REPO, "docs")))} == docs
+    # no card, no block; no markers, no write
+    out.write_text(_bench_output(PORT_LINES[1:]))
+    assert tbd.main([str(out), "--readme", str(readme)]) == 1
+    bare = tmp_path / "bare.md"
+    bare.write_text("no markers\n")
+    out.write_text(_bench_output(PORT_LINES))
+    assert tbd.main([str(out), "--readme", str(bare)]) == 1 and bare.read_text() == "no markers\n"
