@@ -40,13 +40,48 @@
 //    inside a 64-byte stage is permuted alike for rows and candidates (the
 //    integer sum does not depend on it).
 //
-// 2. The f32 path (`score_rows_launch`), unchanged, for programs whose rows
-//    are not int8-exact (a fractional coefficient other than 0.5) or whose
-//    shape or candidate box the int8 path does not take: f32 FFMA on the
-//    CUDA cores. With small dyadic H entries and small non-negative integer
-//    candidates each product and partial sum is exact in f32 in any order,
-//    so hx is again bitwise equal to any exact f32 product. No TF32 and no
-//    bf16 tensor cores, which would round.
+// 2. The f32 path (`score_rows_launch`), for programs whose rows are not
+//    int8-exact (a fractional coefficient other than 0.5) or whose shape or
+//    candidate box the int8 path does not take: the Pallas kernel's own
+//    arithmetic, hx as an f32 product of X and H, in FFMA on the CUDA cores.
+//    No TF32 and no bf16 tensor cores, which would round. With small dyadic
+//    H entries and small non-negative integer candidates every product and
+//    partial sum is w times an integer below 2^24, exact in f32 in any order,
+//    so hx is bitwise equal to any f32 product; where a row value can pass
+//    2^24 (the big leg's recipe at S=120) every order rounds differently.
+//
+//    What bounds it: reading H, 4 * Rows * Vp bytes, and 2 B Rows Vp FFMA
+//    operations (67 TFLOP/s). At B=32 the two are close (S=128: 3.80 GB of H,
+//    1.14 ms at 3.35 TB/s; 60.9 GFLOP, 0.91 ms), so the kernel has to stream
+//    H near the memory's rate and keep the FFMA pipes busy at once; at
+//    B=1000 the FFMAs bound it. One product kernel in three shapes, chosen
+//    from B by a fixed rule, each thread holding 8 rows x 16 candidates of
+//    the product in registers (24 float4 reads of shared memory per 512
+//    FFMAs), H and the candidates' k-slice fed through a cp.async ring:
+//
+//    - B <= 32: 512 rows x 32 candidates a block, 128 threads, two blocks a
+//      SM, 8-deep stages in a 4-stage ring; the candidates' reads are
+//      warp-wide broadcasts, and X (2.1 MB at S=128) comes from L2;
+//    - B <= 64: 256 rows x 64 candidates, the same;
+//    - B > 64: 128 rows x 256 candidates, 256 threads, one block a SM (the
+//      8 x 16 tile takes 250 registers), 32-deep stages in a 3-stage ring.
+//      Candidate tiles run fastest, so the blocks that run together share
+//      their rows of H in L2 and H leaves the memory about once.
+//
+//    Where the tiles are too few to fill the card's resident blocks (S=48:
+//    16 row tiles at B=32), k is cut into a fixed number of slices of at
+//    least 128 (a function of B, Rows and Vp, never of the case count).
+//    Each block writes its slice's raw row sums; a finishing pass sums the
+//    slices in slice order, and only then takes the hinge, which needs the
+//    whole row value.
+//
+//    What holds it above its bound (H100 80GB HBM3; ncu does not run where
+//    it was measured): at B=1000 the FFMAs run at about 60% of their peak.
+//    If a warp's float4 read of shared memory takes four wavefronts (one per
+//    quarter warp), the 24 reads per 512 FFMAs use three quarters of the
+//    SM's shared-memory bandwidth, and the two would have to overlap fully;
+//    a register tile larger than 8 x 16 does not fit in 255 registers. At B=32 HBM (1.8 TB/s of
+//    3.35) and the FFMAs (44%) are each about half used.
 //
 // The hinge sums are exact while a candidate's score stays on the 0.5 lattice
 // below 2^23, as the search's near-feasible candidates do on integer targets.
@@ -54,116 +89,18 @@
 //
 // Layout. The TPU grid walked the row tiles in order on one core and carried
 // each score in VMEM across them. Here blocks run in parallel and in no
-// order: each block forms one [64 rows x 32 candidates] tile of hx, reduces
-// its hinges per candidate, and writes one partial per (row tile, candidate).
-// A second small kernel sums the partials over the row tiles in a fixed
-// order. No atomics, so a result does not depend on scheduling. The f32 path
-// masks ragged B, Rows and Vp; the int8 path takes Rows and Vp in multiples
-// of 64 (as `scoring_tensors` pads them) and masks ragged B.
+// order: on the int8 path each block, on the f32 path the finishing pass,
+// reduces one row tile's hinges per candidate into one partial per (row
+// tile, candidate). A second small kernel sums the partials over the row
+// tiles in a fixed order. No atomics, so a result does not depend on
+// scheduling. The f32 path masks ragged B, Rows and Vp (a Vp that is not a
+// multiple of 4, or an operand that is not 16-byte aligned, takes 4-byte
+// copies); the int8 path takes Rows and Vp in multiples of 64 (as
+// `scoring_tensors` pads them) and masks ragged B.
 
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int BR = 64;            // rows per block
-constexpr int BB = 32;            // candidates per block
-constexpr int BK = 32;            // depth of one shared-memory stage
-constexpr int TR = 16;            // threads along rows
-constexpr int TB = 16;            // threads along candidates
-constexpr int RPT = BR / TR;      // rows per thread
-constexpr int CPT = BB / TB;      // candidates per thread
-constexpr int THREADS = TR * TB;  // 256
-
-// 6 resident blocks per SM cap the kernel at 40 registers. With the thread
-// count alone ptxas held it to 32, and the case axis's pointer offsets then
-// spilled: 0.43 ms at S=48, B=32 against 0.22 ms with this bound (H100 80GB HBM3).
-__global__ void __launch_bounds__(THREADS, 6)
-score_rows_tile(const float* __restrict__ H, const float* __restrict__ lb,
-                const float* __restrict__ ub, const float* __restrict__ X,
-                float* __restrict__ hx_out, float* __restrict__ partial, int B,
-                int rows, int vp) {
-  // +1 column: the transposing stores below hit 32 different banks
-  __shared__ float Hs[BK][BR + 1];
-  __shared__ float Xs[BK][BB + 1];
-  const int tid = threadIdx.x;
-  const int tr = tid % TR;  // this thread's rows: r0 + tr + i * TR
-  const int tb = tid / TR;  // this thread's candidates: b0 + tb + j * TB
-  const int r0 = blockIdx.x * BR;
-  const int b0 = blockIdx.y * BB;
-  const size_t g = blockIdx.z;  // case
-  H += g * rows * vp;
-  lb += g * rows;
-  ub += g * rows;
-  X += g * B * vp;
-  if (hx_out != nullptr) hx_out += g * B * rows;
-  partial += g * gridDim.x * B;
-
-  float acc[RPT][CPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < vp; k0 += BK) {
-    // neighbouring threads read neighbouring k of one row: coalesced
-    for (int e = tid; e < BR * BK; e += THREADS) {
-      const int rr = e / BK, kk = e % BK;
-      const int r = r0 + rr, k = k0 + kk;
-      Hs[kk][rr] = (r < rows && k < vp) ? H[(size_t)r * vp + k] : 0.f;
-    }
-    for (int e = tid; e < BB * BK; e += THREADS) {
-      const int bb = e / BK, kk = e % BK;
-      const int b = b0 + bb, k = k0 + kk;
-      Xs[kk][bb] = (b < B && k < vp) ? X[(size_t)b * vp + k] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float h[RPT], x[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) h[i] = Hs[kk][tr + i * TR];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) x[j] = Xs[kk][tb + j * TB];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(h[i], x[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float part[CPT];
-#pragma unroll
-  for (int j = 0; j < CPT; ++j) part[j] = 0.f;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = r0 + tr + i * TR;
-    if (r >= rows) continue;
-    const float lo = lb[r], hi = ub[r];
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int b = b0 + tb + j * TB;
-      if (b >= B) continue;
-      const float v = acc[i][j];
-      if (hx_out != nullptr) hx_out[(size_t)b * rows + r] = v;
-      part[j] += fmaxf(v - hi, 0.f) + fmaxf(lo - v, 0.f);
-    }
-  }
-  // the TR threads sharing a candidate lane are 16 neighbouring lanes of one
-  // warp (tid = tb * TR + tr): reduce across them with shuffles
-#pragma unroll
-  for (int j = 0; j < CPT; ++j)
-#pragma unroll
-    for (int off = TR / 2; off > 0; off >>= 1)
-      part[j] += __shfl_xor_sync(0xffffffffu, part[j], off);
-  if (tr == 0) {
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int b = b0 + tb + j * TB;
-      if (b < B) partial[(size_t)blockIdx.x * B + b] = part[j];
-    }
-  }
-}
 
 // The second pass of both paths: one warp per candidate sums its row tiles'
 // partials, lane l taking tiles l, l + 32, ... in order, then a fixed
@@ -395,28 +332,302 @@ cudaError_t launch_i8(const signed char* H8, const float* w, const float* lb,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------- the f32 path
+
+constexpr int F_KALIGN = 32;        // k-slices start at multiples of every stage depth
+constexpr int F_FT = 128;           // rows per tile of the finishing pass (4 per lane)
+constexpr int F_MIN_SLICE = 128;    // the shortest k-slice worth a block
+
+// 16 bytes (aligned rows) or one float per cp.async; `n` of them are real,
+// the rest of the destination is zero-filled (ragged rows, k or candidates).
+// A stage reads 32 bytes of each of 512 rows at B <= 32: the L2 fetches the
+// whole 128-byte line on a miss, so the next three stages find it there
+// (1.95 against 2.14 ms at S=128, B=32 on an H100 80GB HBM3).
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, int n_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem, int n_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(n_bytes) : "memory");
+}
+
+// One stage of an NR-row operand: rows [r0, r0 + NR) of the row-major
+// M [nrows, vp], floats [k0, k0 + BK) of each, into dst [NR][BK + 4]; zero
+// past nrows and past kend. AL: vp % 4 == 0 and M 16-byte aligned, so every
+// 16-byte chunk of a row lies wholly inside or outside [k0, kend).
+template <int NR, int NT, int BK, bool AL>
+__device__ __forceinline__ void f32_load_tile(float* dst, const float* M, int r0, int nrows,
+                                              int k0, int kend, int vp, int tid) {
+  constexpr int LD = BK + 4;
+  if (AL) {
+#pragma unroll
+    for (int e = tid; e < NR * (BK / 4); e += NT) {
+      const int rr = e / (BK / 4), k = k0 + 4 * (e % (BK / 4));
+      const bool in = r0 + rr < nrows && k < kend;
+      cp_async16_zfill(dst + rr * LD + (k - k0), in ? M + (size_t)(r0 + rr) * vp + k : M, in ? 16 : 0);
+    }
+  } else {
+#pragma unroll 4
+    for (int e = tid; e < NR * BK; e += NT) {
+      const int rr = e / BK, k = k0 + e % BK;
+      const bool in = r0 + rr < nrows && k < kend;
+      cp_async4_zfill(dst + rr * LD + (k - k0), in ? M + (size_t)(r0 + rr) * vp + k : M, in ? 4 : 0);
+    }
+  }
+}
+
+// The product kernel: a block forms a BM-row x BN-candidate tile of the raw
+// row sums over one k-slice, a thread 8 rows x 16 candidates of it (rows
+// tr + (BM / 8) i, candidates tc + (BN / 16) j), so every float4 of H or X
+// read from shared memory feeds 32 or 64 FFMAs: 24 float4 reads per 512
+// FFMAs. The shapes are in F32_SHAPES below. In the first two (B <= 64) the
+// 32 lanes of a warp take 32 neighbouring rows and the same candidates
+// (their X reads are broadcasts); in the third a quarter warp takes 8
+// neighbouring rows and one candidate. Either way the float4
+// reads of a quarter warp hit distinct banks. Block (candidate tile, row
+// tile, case * slices) writes its slice's sums into P [cases * slices, B,
+// rows]; candidate tiles run fastest, so the blocks that run together share
+// their rows of H in L2.
+template <int BM, int BN, int THREADS, int MIN_BLOCKS, int BK, int STAGES, bool AL>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+score_rows_f32_product(const float* __restrict__ H, const float* __restrict__ X,
+                       float* __restrict__ P, int B, int rows, int vp, int klen,
+                       int slices) {
+  constexpr int RT = 8, CT = 16, RS = BM / RT, CS = BN / CT;
+  static_assert(RS * CS == THREADS, "one thread per 8 x 16 results");
+  constexpr int LD = BK + 4;  // padded: 8 neighbouring rows start in distinct banks
+  constexpr int H_FL = BM * LD, STAGE = H_FL + BN * LD;
+  extern __shared__ __align__(16) float fsm[];
+  const int tid = threadIdx.x;
+  int tr, tc;
+  if constexpr (RS >= 32) {
+    tr = tid % RS;
+    tc = tid / RS;
+  } else {  // RS == 16: lanes 0-7 rows, lanes 8-31 candidates, then warps
+    tr = (tid & 7) | ((tid >> 5) & 1) << 3;
+    tc = ((tid >> 3) & 3) | (tid >> 6) << 2;
+  }
+  const int b0 = blockIdx.x * BN, r0 = blockIdx.y * BM;
+  const size_t g = blockIdx.z / slices;  // case
+  const int kbeg = (blockIdx.z % slices) * klen, kend = min(vp, kbeg + klen);
+  H += g * rows * (size_t)vp;
+  X += (g * B + b0) * (size_t)vp;
+  P += blockIdx.z * (size_t)B * rows;
+  const int nk = (kend - kbeg + BK - 1) / BK;
+
+  auto load_stage = [&](int kc) {
+    float* dst = fsm + (kc % STAGES) * STAGE;
+    const int k0 = kbeg + kc * BK;
+    f32_load_tile<BM, THREADS, BK, AL>(dst, H, r0, rows, k0, kend, vp, tid);
+    f32_load_tile<BN, THREADS, BK, AL>(dst + H_FL, X, 0, B - b0, k0, kend, vp, tid);
+  };
+
+  float acc[RT][CT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < CT; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load_stage(s);
+    cp_async_commit();
+  }
+  for (int kc = 0; kc < nk; ++kc) {
+    cp_async_wait<STAGES - 2>();  // stage kc has landed
+    __syncthreads();              // ... for every thread; stage kc-1 is free
+    if (kc + STAGES - 1 < nk) load_stage(kc + STAGES - 1);
+    cp_async_commit();
+    const float* hs = fsm + (kc % STAGES) * STAGE + tr * LD;
+    const float* xs = fsm + (kc % STAGES) * STAGE + H_FL + tc * LD;
+#pragma unroll
+    for (int kq = 0; kq < BK; kq += 4) {
+      float4 h[RT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) h[i] = *reinterpret_cast<const float4*>(hs + i * RS * LD + kq);
+      // k in order for every accumulator; the 8 rows' FFMAs of one k are
+      // independent, so the pipe never waits on the one before
+#pragma unroll
+      for (int j = 0; j < CT; ++j) {
+        const float4 x = *reinterpret_cast<const float4*>(xs + j * CS * LD + kq);
+#pragma unroll
+        for (int i = 0; i < RT; ++i) acc[i][j] = fmaf(h[i].x, x.x, acc[i][j]);
+#pragma unroll
+        for (int i = 0; i < RT; ++i) acc[i][j] = fmaf(h[i].y, x.y, acc[i][j]);
+#pragma unroll
+        for (int i = 0; i < RT; ++i) acc[i][j] = fmaf(h[i].z, x.z, acc[i][j]);
+#pragma unroll
+        for (int i = 0; i < RT; ++i) acc[i][j] = fmaf(h[i].w, x.w, acc[i][j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int j = 0; j < CT; ++j) {
+    const int b = b0 + tc + CS * j;
+    if (b >= B) continue;
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int r = r0 + tr + RS * i;
+      if (r < rows) P[(size_t)b * rows + r] = acc[i][j];
+    }
+  }
+}
+
+// The finishing pass: warp w of block (candidate group, tile, case) takes
+// candidate 8 group + w and the tile's 128 rows, lane l rows l, l + 32, ...
+// For each row it sums the slices' raw sums in slice order, stores hx when
+// asked and takes the hinge; the lane adds its 4 hinges in row order, and a
+// fixed shuffle tree the warp's into partial [cases, tiles, B].
+__global__ void __launch_bounds__(256)
+score_rows_f32_finish(const float* __restrict__ P, const float* __restrict__ lb,
+                      const float* __restrict__ ub, float* __restrict__ hx_out,
+                      float* __restrict__ partial, int B, int rows, int slices) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (b >= B) return;  // the whole warp
+  const size_t g = blockIdx.z;  // case
+  P += g * slices * (size_t)B * rows;
+  float h = 0.f;
+#pragma unroll
+  for (int q = 0; q < F_FT / 32; ++q) {
+    const int r = blockIdx.y * F_FT + q * 32 + lane;
+    if (r < rows) {
+      float v = P[(size_t)b * rows + r];
+      for (int s = 1; s < slices; ++s) v += P[((size_t)s * B + b) * rows + r];
+      if (hx_out != nullptr) hx_out[(g * B + b) * (size_t)rows + r] = v;
+      h += fmaxf(v - ub[g * rows + r], 0.f) + fmaxf(lb[g * rows + r] - v, 0.f);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) h += __shfl_xor_sync(0xffffffffu, h, off);
+  if (lane == 0) partial[(g * gridDim.y + blockIdx.y) * (size_t)B + b] = h;
+}
+
+// The product kernel's shapes: rows x candidates a block, threads, the
+// blocks a SM its registers allow, stage depth, ring stages. The first
+// shape that holds every candidate takes the launch, else the last.
+struct F32Shape {
+  int bm, bn, threads, min_blocks, bk, stages;
+};
+constexpr F32Shape F32_SHAPES[3] = {{512, 32, 128, 2, 8, 4}, {256, 64, 128, 2, 8, 4}, {128, 256, 256, 1, 32, 3}};
+
+// How the f32 path cuts one launch: the product kernel's shape, and how
+// many k-slices. A function of (B, rows, vp) alone, so a case-stacked launch
+// sums each case in the order a single-case launch does.
+struct F32Plan {
+  int shape;  // an index into F32_SHAPES
+  int row_tiles, col_tiles;
+  int slices, klen;  // k-slices of klen (a multiple of F_KALIGN) floats each
+};
+
+F32Plan f32_plan(int B, int rows, int vp) {
+  F32Plan p;
+  p.shape = B <= F32_SHAPES[0].bn ? 0 : (B <= F32_SHAPES[1].bn ? 1 : 2);
+  const F32Shape& sh = F32_SHAPES[p.shape];
+  const long long slots = sh.min_blocks * 132LL;  // resident blocks on the H100's 132 SMs
+  p.row_tiles = (rows + sh.bm - 1) / sh.bm;
+  p.col_tiles = (B + sh.bn - 1) / sh.bn;
+  const long long units = (long long)p.row_tiles * p.col_tiles;
+  // cut k into the fewest slices (at least F_MIN_SLICE long) whose blocks
+  // fill 90% of the waves they take, or else the fullest
+  const int most = vp / F_MIN_SLICE > 1 ? vp / F_MIN_SLICE : 1;
+  int want = 1;
+  double best = 0.0;
+  for (int s = 1; s <= most; ++s) {
+    const long long blocks = units * s, waves = (blocks + slots - 1) / slots;
+    const double fill = (double)blocks / (double)(waves * slots);
+    if (fill > best + 1e-9) best = fill, want = s;
+    if (fill >= 0.9) break;
+  }
+  const int per = (vp + want - 1) / want;
+  p.klen = vp > 0 ? (per + F_KALIGN - 1) / F_KALIGN * F_KALIGN : F_KALIGN;
+  p.slices = vp > 0 ? (vp + p.klen - 1) / p.klen : 1;
+  return p;
+}
+
+long long f32_p_bytes(int cases, int B, int rows, const F32Plan& p) {
+  return ((long long)cases * p.slices * B * rows * 4 + 255) / 256 * 256;
+}
+
+// Dynamic shared memory past 48 KB needs the attribute, once per device.
+template <typename Kernel>
+cudaError_t f32_allow_smem(Kernel kernel, int bytes, unsigned long long& set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && (set >> dev & 1ull)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < 64) set |= 1ull << dev;
+  return err;
+}
+
+template <int SHAPE, bool AL>
+cudaError_t launch_f32_shape(const float* H, const float* X, float* P, const F32Plan& p,
+                             int cases, int B, int rows, int vp, cudaStream_t s) {
+  constexpr F32Shape sh = F32_SHAPES[SHAPE];
+  static_assert(F_KALIGN % sh.bk == 0, "k-slices must start on a stage boundary");
+  constexpr int smem = sh.stages * (sh.bm + sh.bn) * (sh.bk + 4) * 4;
+  const auto kernel = score_rows_f32_product<sh.bm, sh.bn, sh.threads, sh.min_blocks, sh.bk, sh.stages, AL>;
+  static unsigned long long set = 0;
+  cudaError_t err = f32_allow_smem(kernel, smem, set);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(p.col_tiles, p.row_tiles, cases * p.slices), sh.threads, smem, s>>>(H, X, P, B, rows, vp, p.klen,
+                                                                                    p.slices);
+  return cudaGetLastError();
+}
+
+template <bool AL>
+cudaError_t launch_f32_product(const float* H, const float* X, float* P, const F32Plan& p,
+                               int cases, int B, int rows, int vp, cudaStream_t s) {
+  switch (p.shape) {
+    case 0:
+      return launch_f32_shape<0, AL>(H, X, P, p, cases, B, rows, vp, s);
+    case 1:
+      return launch_f32_shape<1, AL>(H, X, P, p, cases, B, rows, vp, s);
+    default:
+      return launch_f32_shape<2, AL>(H, X, P, p, cases, B, rows, vp, s);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Row tiles of the first pass: the wrapper sizes `partial` [cases, tiles, B].
-int score_rows_num_tiles(int rows) { return (rows + BR - 1) / BR; }
+// Bytes of scratch the f32 path needs: the slices' raw row sums P [cases,
+// slices, B, rows], then the row tiles' partials [cases, tiles, B] (f32),
+// 256-byte aligned.
+long long score_rows_f32_scratch_bytes(int cases, int B, int rows, int vp) {
+  const F32Plan p = f32_plan(B, rows, vp);
+  return f32_p_bytes(cases, B, rows, p) + (long long)cases * ((rows + F_FT - 1) / F_FT) * B * 4;
+}
 
-// All pointers are device pointers; hx_out may be null. `cases` is the
-// leading case axis (1 for a single case). Returns the cudaError_t of the
-// launches (0 when both were accepted).
+// The f32 path. H [cases, rows, vp], lb/ub [cases, rows], X [cases, B, vp],
+// all f32 device pointers; scratch of score_rows_f32_scratch_bytes, 256-byte
+// aligned; hx_out may be null. Returns the cudaError_t of the launches (0
+// when all were accepted).
 int score_rows_launch(const float* H, const float* lb, const float* ub,
-                      const float* X, float* hx_out, float* partial,
+                      const float* X, void* scratch, float* hx_out,
                       float* scores, int cases, int B, int rows, int vp,
                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(score_rows_num_tiles(rows), (B + BB - 1) / BB, cases);
-  score_rows_tile<<<grid, THREADS, 0, s>>>(H, lb, ub, X, hx_out, partial, B,
-                                           rows, vp);
-  cudaError_t err = cudaGetLastError();
+  const F32Plan p = f32_plan(B, rows, vp);
+  float* P = static_cast<float*>(scratch);
+  float* partial = reinterpret_cast<float*>(static_cast<char*>(scratch) + f32_p_bytes(cases, B, rows, p));
+  const bool aligned = vp % 4 == 0 && (reinterpret_cast<size_t>(H) | reinterpret_cast<size_t>(X)) % 16 == 0;
+  cudaError_t err = aligned ? launch_f32_product<true>(H, X, P, p, cases, B, rows, vp, s)
+                            : launch_f32_product<false>(H, X, P, p, cases, B, rows, vp, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  score_rows_sum<<<dim3((B + 7) / 8, cases), 256, 0, s>>>(
-      partial, scores, B, static_cast<int>(grid.x));
+  const int tiles = (rows + F_FT - 1) / F_FT;
+  score_rows_f32_finish<<<dim3((B + 7) / 8, tiles, cases), 256, 0, s>>>(P, lb, ub, hx_out, partial, B, rows,
+                                                                         p.slices);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  score_rows_sum<<<dim3((B + 7) / 8, cases), 256, 0, s>>>(partial, scores, B, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,7 +16,8 @@ in different orders may differ in the last bit (about 1e-7 relative).
 `score_rows` is the wrapper of K1, the hand-written CUDA kernel
 (csrc/score_rows.cu) that replaces the Pallas `_score_kernel`: on the
 int8 tensor cores when the program's rows are int8-exact (`k1_planes`),
-in f32 FFMA otherwise. `chained_score` is the wrapper of K2
+otherwise in f32 FFMA on the CUDA cores, the Pallas kernel's own
+arithmetic (a register-tiled product whose block shape follows B). `chained_score` is the wrapper of K2
 (csrc/chained_score.cu, wgmma), which replaces the Pallas
 `_chained_kernel` of the benchmark chain. On a CUDA tensor each launches
 its kernel or raises; its plain PyTorch version (`score_rows_plain`,
@@ -327,7 +328,16 @@ def k1_planes(st: ScoringTensors) -> int:
     and Vp in multiples of 64, candidates below 2^16 (the box x_ub) and
     every row value below 2^24: ceil(x_ub_max) * max|H8| * Vp < 2^24,
     so hx_int converts to f32 exactly and hx = w * hx_int is bitwise the
-    f32 product of H. Decided from the representation before launch."""
+    f32 product of H. Decided from the representation before launch.
+
+    The bound is the box's, not the rows': the big leg's recipe (seed
+    300 + S, noise 0.05) passes it at S=96 (0.916 of 2^24) but not at
+    S=120 (4.2) or S=128 (2.59, also without noise), the first recipe
+    cases that take the f32 path. Their rows' own bound, max_r
+    sum_k |H8[r, k]| * x_ub[k], is 0.652 of 2^24 at S=128, so every
+    partial sum of an S=128 row value is exact in f32 and the f32 path
+    is bitwise there; at S=120 it is 1.055, so row values can pass 2^24
+    and every f32 summation order rounds them differently."""
     if not st.int8_ok:
         return 0
     rows, vp = st.H8.shape[-2:]
@@ -389,8 +399,8 @@ def _k1_library() -> ctypes.CDLL:
     if lib.score_rows_launch.argtypes is None:
         lib.score_rows_launch.argtypes = _K1_ARGTYPES
         lib.score_rows_launch.restype = ctypes.c_int
-        lib.score_rows_num_tiles.argtypes = [ctypes.c_int]
-        lib.score_rows_num_tiles.restype = ctypes.c_int
+        lib.score_rows_f32_scratch_bytes.argtypes = [ctypes.c_int] * 4
+        lib.score_rows_f32_scratch_bytes.restype = ctypes.c_longlong
         lib.score_rows_i8_launch.argtypes = _K1_I8_ARGTYPES
         lib.score_rows_i8_launch.restype = ctypes.c_int
         lib.score_rows_i8_scratch_bytes.argtypes = [ctypes.c_int] * 5
@@ -477,14 +487,16 @@ def score_rows(
                 stream,
             )
         else:
-            partial = torch.empty((cases, lib.score_rows_num_tiles(rows), B), dtype=torch.float32, device=dev)
+            scratch = torch.empty(
+                lib.score_rows_f32_scratch_bytes(cases, B, rows, Vp), dtype=torch.uint8, device=dev
+            )
             err = lib.score_rows_launch(
                 H.data_ptr(),
                 lb.data_ptr(),
                 ub.data_ptr(),
                 X.data_ptr(),
+                scratch.data_ptr(),
                 hx.data_ptr() if hx is not None else None,
-                partial.data_ptr(),
                 scores.data_ptr(),
                 cases,
                 B,

@@ -8,8 +8,8 @@ and prints no result line:
 1. the card: nvidia-smi's name and power limit; a CUDA device must exist;
 2. build every kernel of the port's paths from csrc/ (nvcc, sm_90a), one
    nvcc per source, all started together; ptxas's register and spill
-   report, and the tensor-core instructions in each library's SASS
-   (cuobjdump), which must be there;
+   report (K1's f32 kernels must spill nothing), and the tensor-core
+   instructions in each library's SASS (cuobjdump), which must be there;
 3. K1 (`score_rows`, csrc/score_rows.cu) against its plain PyTorch
    version on the tensors of the S=48 seed-0 case, on its int8
    tensor-core path, at B=32 (the search's population) and B=1000
@@ -112,15 +112,28 @@ and prints no result line:
 19. with two cards or more, phases 16 and 17 over distinct cards, equal
    to the same mesh shape on one card; with one card a line says the
    phase was skipped;
-20. a JSON line describing the kernels, then the result line
+20. K1's f32 path at S=128: (a) the big leg's recipe at S=128 (seed
+   428, 6 rounds, noise 0.05; V 16512, Rows 57600, Vp 16512) and its
+   noise-free twin, both int8-exact but past the int8 gate's box bound
+   (2.59 of 2^24), so `k1_planes` is 0; (b) K1 on both at B=32 and
+   B=1000: hx bitwise equal to the plain version, the scores bitwise on
+   the twin and within rtol 1e-5 on the noisy case; (c) its times beside
+   the plain version, `torch.matmul` and the bound, as in phase 3; (d) a
+   bounded device search on the noisy program (`solve_device`, one
+   round, one sweep, no polish, no certificate): at least two K1
+   launches, all on its f32 path, and an integral x inside [0, x_ub].
+   The S=128 tensors (the f32 H and its transpose, 7.6 GB) are released
+   after it;
+21. a JSON line describing the kernels, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Every launch count in the kernels line comes from the main paths (the
 slice, the chain leg, the manifest, the single-cell slice, the sc:
 manifest, the S=64 slice, the golden suite, the sharded solves of phase
-17 and the mesh batch of phase 18), each driven with the counts set to 0
-just before it and read just after; the row-shard entry counts phase
-17's launches, every one of which is a row shard's.
+17, the mesh batch of phase 18 and the S=128 search of phase 20), each
+driven with the counts set to 0 just before it and read just after; the
+row-shard entry counts phase 17's launches, every one of which is a row
+shard's, and the f32 block of the K1 entry phase 20's.
 """
 
 from __future__ import annotations
@@ -149,6 +162,7 @@ SC_SLICE_SEED = 3
 SC_MANIFEST_SEEDS = (3, 4)
 SC_EPS_BAR = 8.0  # the host MILP's optimum (HiGHS) on the seed-3 block program
 S64_EPS_BAR = 3.78  # the JAX device search at S=64, two decimals (docs/bench_big.json)
+S128 = 128  # the big leg's recipe at the first S whose cases take K1's f32 path
 DEVICE = "cuda"
 BATCH_S32 = dict(seed=200, n_segments=32, rounds=5, mode="process")  # case 0 of the bench's batch
 PROXY_BUDGETS = dict(pop=8, steps=12, rounds=2)  # the bench proxy leg's shard budgets
@@ -308,27 +322,30 @@ def check_k1_case(label, st, X_sets, exact_kind, path):
     return worst
 
 
-def time_k1(label, st, X_pop, path, planes: int = 1):
+def time_k1(label, st, X_pop, path, planes: int = 1, iters: int = 20, host_iters: int = 200):
     """Times at B=32 and B=1000, each after an L2 flush: K1, its plain
     version and one torch.matmul(X, H.T) in f32 (the library call for
-    the product alone); {B: (kernel, plain, library, bound, bound_by)}."""
+    the product alone), each the mean of `iters` runs, and the host time
+    to queue a call over `host_iters` calls; {B: (kernel, plain,
+    library, bound, bound_by)}."""
     import torch
 
     from ambigram_tpu_torch.solver.score import score_rows, score_rows_plain
 
     out = {}
+    warmup = min(3, iters)
     for B in (32, 1000):
         X = torch.as_tensor(X_pop[:B]).to(DEVICE)
         H = st.H
-        plain_a = cuda_ms_cold(lambda: score_rows_plain(st, X, want_hx=True))
-        lib_a = cuda_ms_cold(lambda: torch.matmul(X, H.t()))
-        kern_a = cuda_ms_cold(lambda: score_rows(st, X, want_hx=True))
-        kern_b = cuda_ms_cold(lambda: score_rows(st, X, want_hx=True))
-        lib_b = cuda_ms_cold(lambda: torch.matmul(X, H.t()))
-        plain_b = cuda_ms_cold(lambda: score_rows_plain(st, X, want_hx=True))
-        warm = cuda_ms(lambda: score_rows(st, X, want_hx=True))
-        host_k = host_us(lambda: score_rows(st, X, want_hx=True))
-        host_l = host_us(lambda: torch.matmul(X, H.t()))
+        plain_a = cuda_ms_cold(lambda: score_rows_plain(st, X, want_hx=True), iters, warmup)
+        lib_a = cuda_ms_cold(lambda: torch.matmul(X, H.t()), iters, warmup)
+        kern_a = cuda_ms_cold(lambda: score_rows(st, X, want_hx=True), iters, warmup)
+        kern_b = cuda_ms_cold(lambda: score_rows(st, X, want_hx=True), iters, warmup)
+        lib_b = cuda_ms_cold(lambda: torch.matmul(X, H.t()), iters, warmup)
+        plain_b = cuda_ms_cold(lambda: score_rows_plain(st, X, want_hx=True), iters, warmup)
+        warm = cuda_ms(lambda: score_rows(st, X, want_hx=True), iters, warmup)
+        host_k = host_us(lambda: score_rows(st, X, want_hx=True), host_iters)
+        host_l = host_us(lambda: torch.matmul(X, H.t()), host_iters)
         kern, plain, lib = (kern_a + kern_b) / 2, (plain_a + plain_b) / 2, (lib_a + lib_b) / 2
         bnd, by = k1_bound(st, B, 0 if path == "f32" else planes)
         out[B] = (kern, plain, lib, bnd, by)
@@ -1308,6 +1325,111 @@ def check_distinct_cards(workdir: str) -> None:
     run_sharded_solve(proxy_programs(workdir), [("distinct", distinct), ("one card", logical)])
 
 
+def s128_programs(workdir: str) -> dict:
+    """Phase 20(a): the big leg's recipe at S=128 (seed 428, 6 rounds,
+    process mode) and its noise-free twin, {noise: program}. Their row
+    values can reach 0.652 of 2^24 but the gate's box bound passes it
+    (2.59), so K1 reads both in f32."""
+    from ambigram_tpu_torch.bench import big_case_path
+    from ambigram_tpu_torch.engine.pipeline import extract_programs
+    from ambigram_tpu_torch.solver.score import k1_planes, scoring_tensors
+
+    progs = {}
+    for noise in (0.05, 0.0):
+        t0 = time.perf_counter()
+        prog = extract_programs(big_case_path(workdir, S128, noise))[0]
+        st = scoring_tensors(prog, "cpu", need_f32=False)
+        planes = k1_planes(st)
+        log("s128 noise %g: V=%d rows=%d vp=%d x_ub_max %r max|H8| %d, box bound %.4f of 2^24, int8_ok %s, "
+            "%d planes (%.1f s to build)"
+            % (noise, prog.num_vars, st.H8.shape[0], st.H8.shape[1], st.x_ub_max, st.h8_absmax(),
+               math.ceil(st.x_ub_max) * st.h8_absmax() * st.H8.shape[1] / 2**24, st.int8_ok, planes,
+               time.perf_counter() - t0))
+        if planes != 0 or not st.int8_ok:
+            raise AssertionError("the S=128 case (noise %g) should be int8-exact and take K1's f32 path" % noise)
+        progs[noise] = prog
+        del st
+    return progs
+
+
+def check_k1_s128(progs: dict) -> dict:
+    """Phase 20(b, c): K1's f32 path on both S=128 programs at B=32 and
+    B=1000: hx bitwise equal to the plain version (every partial sum of
+    a row value is w times an integer below 2^24), the scores bitwise on
+    the noise-free twin and within K1_RTOL on the noisy case; then its
+    times on the noisy case. Returns the kernels-line numbers."""
+    import torch
+
+    from ambigram_tpu_torch.solver.score import scoring_tensors
+
+    out = {}
+    for noise in (0.0, 0.05):
+        prog = progs[noise]
+        st = scoring_tensors(prog, DEVICE)
+        label = "S=%d seed %d noise%g" % (S128, 300 + S128, noise)
+        pop = population(prog, st.x_ub.cpu().numpy(), 1000, seed=2)
+        err = check_k1_case(label, st, {"population": pop}, "population" if noise == 0.0 else None, "f32")
+        if noise > 0.0:
+            t = time_k1(label, st, pop, "f32", iters=5, host_iters=10)
+            out = {"max_abs_err": err, "ms": t[32][0], "plain_ms": t[32][1], "library_ms": t[32][2],
+                   "bound_ms": t[32][3], "bound_by": t[32][4], "ms_b1000": t[1000][0],
+                   "plain_ms_b1000": t[1000][1], "library_ms_b1000": t[1000][2], "bound_ms_b1000": t[1000][3],
+                   "bound_by_b1000": t[1000][4], "shape": [st.H.shape[0], st.H.shape[1]]}
+        del st
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_s128_search(prog) -> dict:
+    """Phase 20(d): a bounded device search on the noisy S=128 program
+    (one round, one sweep of each tier it reaches, no polish, no
+    certificate), through `solve_device` on cuda: K1 must launch at least
+    twice (the first scoring and the rescoring after the kick), every
+    launch on its f32 path, and the returned x be integral and inside
+    [0, x_ub]."""
+    import numpy as np
+    import torch
+
+    from ambigram_tpu_torch.solver.score import reset_launch_counts, score_rows
+    from ambigram_tpu_torch.solver.search import solve_device
+    from ambigram_tpu_torch.utils.profiling import GLOBAL
+
+    GLOBAL.reset()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solve_device(prog, device=DEVICE, rounds=1, max_sweeps=1, polish=False, certify=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, int8_launches, f32_launches = score_rows.launches, score_rows.int8_launches, score_rows.f32_launches
+    x = np.asarray(res.x, dtype=np.float64)
+    vio = float(prog.hard_violation(x))
+    log("s128 search: V=%d wall %.3f s, status %s, eps %r, hard_violation %r, K1 launches %d (f32 path %d, int8 path %d)"
+        % (prog.num_vars, wall, res.status, float(prog.residual_objective(x)), vio, launches, f32_launches,
+           int8_launches))
+    log_phases(("solve.tensors", "solve.lp_bound", "score"))
+    if f32_launches < 2 or int8_launches != 0 or f32_launches != launches:
+        raise AssertionError("K1 launched %d times in the S=128 search (%d f32, %d int8), expected >= 2, all f32"
+                             % (launches, f32_launches, int8_launches))
+    if x.shape != (prog.num_vars,) or not np.array_equal(x, np.round(x)) or (x < 0).any() or (x > prog.x_ub).any():
+        raise AssertionError("the S=128 search returned an x that is not integral inside [0, x_ub]")
+    return {"launches": launches, "int8_launches": int8_launches, "f32_launches": f32_launches, "wall": wall,
+            "hard_violation": vio}
+
+
+def check_s128(workdir: str) -> tuple:
+    """Phase 20: K1's f32 path on the S=128 programs, then the bounded
+    search; (kernels-line numbers, the search's main-path counts). The
+    S=128 tensors are released before it returns."""
+    import torch
+
+    progs = s128_programs(workdir)
+    k1 = check_k1_s128(progs)
+    search = run_s128_search(progs[0.05])
+    del progs
+    torch.cuda.empty_cache()
+    return k1, search
+
+
 def sass_counts(path: str) -> dict:
     """Tensor-core instructions in a library's SASS (cuobjdump), by
     mnemonic: IMMA is mma.sync on integers, [HIQ]GMMA the warpgroup
@@ -1324,8 +1446,19 @@ def sass_counts(path: str) -> dict:
     return counts
 
 
+def ptxas_spills(report: str) -> dict:
+    """{function: (spill store bytes, spill load bytes)} from ptxas's
+    -v report."""
+    import re
+
+    found = re.findall(r"Function properties for (\S+)\n\s*\d+ bytes stack frame, (\d+) bytes spill stores, "
+                       r"(\d+) bytes spill loads", report)
+    return {name: (int(st), int(ld)) for name, st, ld in found}
+
+
 def build_kernels() -> None:
-    """Build every kernel of the port at once (one nvcc per source)."""
+    """Build every kernel of the port at once (one nvcc per source); K1's
+    f32 kernels must not spill."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ambigram_tpu_torch import kernels
@@ -1341,6 +1474,11 @@ def build_kernels() -> None:
         log("build: %s %.2f s in nvcc" % (name, info["seconds"]))
         if info["log"]:
             log(info["log"])
+        if name == "score_rows":
+            f32 = {fn: v for fn, v in ptxas_spills(info["log"]).items() if "score_rows_f32" in fn}
+            if not f32 or any(v != (0, 0) for v in f32.values()):
+                raise AssertionError("K1's f32 kernels spill or are missing from ptxas's report: %r" % f32)
+            log("ptxas: K1's %d f32 kernels spill nothing" % len(f32))
         counts = sass_counts(info["path"])
         log("sass: %s tensor-core instructions %s" % (name, json.dumps(counts, sort_keys=True)))
         if not any(counts.get(op) for op in wanted):
@@ -1394,9 +1532,10 @@ def main() -> int:
         proxy = run_proxy_meshes(workdir)
         mesh_batch = run_mesh_batch(workdir, paths)
         check_distinct_cards(workdir)
+        k1_s128, s128_search = check_s128(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    main_paths = (sl, batch, sc_slice, sc_batch, s64, golden, proxy, mesh_batch)
+    main_paths = (sl, batch, sc_slice, sc_batch, s64, golden, proxy, mesh_batch, s128_search)
 
     kernels_line = {
         "kernels": [
@@ -1406,7 +1545,8 @@ def main() -> int:
                 "source": "ambigram_tpu_torch/csrc/score_rows.cu",
                 "replaces": "ambigram_tpu/solver/score.py:435",
                 "launches": sum(r["launches"] for r in main_paths),
-                "max_abs_err": max([k1["max_abs_err"], k1_block["max_abs_err"], k1_big["max_abs_err"]] + k1_err),
+                "max_abs_err": max([k1["max_abs_err"], k1_block["max_abs_err"], k1_big["max_abs_err"],
+                                    k1_s128["max_abs_err"]] + k1_err),
                 "ms": k1["ms"],
                 "plain_ms": k1["plain_ms"],
                 "bound_ms": k1["bound_ms"],
@@ -1416,7 +1556,7 @@ def main() -> int:
                 "ms_b1000": k1["ms_b1000"],
                 "plain_ms_b1000": k1["plain_ms_b1000"],
                 "library_ms_b1000": k1["library_ms_b1000"],
-                "f32_path": k1["f32_path"],
+                "f32_path": dict(k1["f32_path"], s128=k1_s128, launches=s128_search["f32_launches"]),
                 "sc_block": k1_block,
                 "big_s96": k1_big,
             },

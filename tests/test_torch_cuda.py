@@ -23,6 +23,7 @@ from ambigram_tpu_torch.parallel.mesh import stack_cases
 from ambigram_tpu_torch.scripts.simulate import simulate_bfb_case, write_case
 from ambigram_tpu_torch.solver import search
 from ambigram_tpu_torch.solver.score import (
+    ScoringTensors,
     chained_score,
     chained_score_plain,
     k1_planes,
@@ -76,14 +77,24 @@ def test_score_rows_kernel_matches_plain(cuda_device, tmp_path, B):
     assert no_hx is None and torch.equal(s_only, s_k)
 
 
-@pytest.mark.parametrize("path", ["f32", "int8_two_planes"])
-def test_score_rows_kernel_other_paths_match_plain(cuda_device, tmp_path, path):
+# B crosses the f32 path's regimes: the streaming kernel up to 64
+# candidates (32 or 64 a block), the tiled kernel above
+F32_BATCHES = (1, 7, 32, 33, 64, 65, 300, 1000)
+
+
+@pytest.mark.parametrize(
+    "path, B, want_hx",
+    [("f32", B, want_hx) for B in F32_BATCHES for want_hx in (True, False)] + [("int8_two_planes", 300, True)],
+)
+def test_score_rows_kernel_other_paths_match_plain(cuda_device, tmp_path, path, B, want_hx):
     """K1's f32 FFMA path on rows that are not int8-exact (a 0.25
-    coefficient), and its int8 path with two candidate planes (a box past
-    255): hx bitwise equal to the plain version. The scores are bitwise
-    equal wherever they stay on the exact f32 lattice (below 2^23); the
-    large loop counts push some past it, where the two versions' f32 row
-    sums round in different orders (rel 1e-6)."""
+    coefficient), at batches on both sides of its regime boundary, with
+    and without hx, and its int8 path with two candidate planes (a box
+    past 255): hx bitwise equal to the plain version. The scores are
+    bitwise equal wherever they stay on the exact f32 lattice (below
+    2^23); the large loop counts push some past it, where the two
+    versions' f32 row sums round in different orders (rel 1e-6). Without
+    hx the kernel returns the same scores bitwise."""
     import dataclasses
 
     prog = simulated_prog(tmp_path, seed=2, n_segments=24, mode="nested")
@@ -95,7 +106,7 @@ def test_score_rows_kernel_other_paths_match_plain(cuda_device, tmp_path, path):
         prog.x_ub[len(prog.pairs):] = 400
     st = scoring_tensors(prog, cuda_device)
     assert k1_planes(st) == (0 if path == "f32" else 2)
-    B, Vp, T = 300, st.H.shape[1], len(prog.pairs)
+    Vp, T = st.H.shape[1], len(prog.pairs)
     X = np.zeros((B, Vp), dtype=np.float32)
     X[:, : prog.num_vars] = np.minimum(rng.integers(0, 2, size=(B, prog.num_vars)), prog.x_ub)
     X *= rng.random((B, Vp)) < 0.05
@@ -113,6 +124,125 @@ def test_score_rows_kernel_other_paths_match_plain(cuda_device, tmp_path, path):
     assert int(exact.sum()) >= 1
     assert torch.equal(s_k[exact], s_p[exact])
     assert float(((s_k - s_p).abs() / s_p.abs().clamp(min=1.0)).max()) <= 1e-6
+    if not want_hx:
+        s_only, no_hx = score_rows(st, X)
+        assert no_hx is None and torch.equal(s_only, s_k)
+
+
+def dyadic_rows(rng, rows, vp, device):
+    """A ScoringTensors that only K1's f32 path reads: H [rows, vp] of
+    multiples of 0.25 in [-2, 2], half of them 0, and integer row bounds
+    (lb = ub on the first half of the rows, open ub on the rest). Every
+    product and partial sum of a small integer candidate is exact in f32,
+    so hx and scores are bitwise in any order."""
+    H = (rng.integers(-8, 9, size=(rows, vp)) * (rng.random((rows, vp)) < 0.5) / 4.0).astype(np.float32)
+    lb = rng.integers(-4, 5, size=rows).astype(np.float32)
+    ub = lb.copy()
+    ub[rows // 2 :] = 3.0e38
+    z = np.zeros((1, vp), dtype=np.float32)
+    return ScoringTensors.from_numpy(
+        H=H, lb=lb, ub=ub, x_ub=np.full(vp, 3.0, np.float32), H8=z.astype(np.int8), lb_raw=lb, ub_raw=ub,
+        w=np.zeros(rows, np.float32), num_vars=vp, num_residual_rows=rows, int8_ok=False, x_ub_max=3.0,
+        device=device,
+    )
+
+
+@pytest.mark.parametrize("rows, vp", [(1000, 999), (1000, 1000), (777, 1284)])
+@pytest.mark.parametrize("B", [7, 33, 65])
+def test_score_rows_f32_ragged_shapes(cuda_device, rows, vp, B):
+    """K1's f32 path at ragged Rows and Vp on both sides of its regime
+    boundary: a Vp that is not a multiple of 4 takes 4-byte copies, and
+    so does a candidate block that is not 16-byte aligned (X one float
+    into a buffer); hx and scores bitwise equal to the plain version."""
+    rng = np.random.default_rng(rows + vp + B)
+    st = dyadic_rows(rng, rows, vp, cuda_device)
+    assert k1_planes(st) == 0
+    X = torch.as_tensor(rng.integers(0, 4, size=(B, vp)).astype(np.float32)).to(cuda_device)
+    s_p, hx_p = score_rows_plain(st, X, want_hx=True)
+    shifted = torch.empty(B * vp + 1, dtype=torch.float32, device=cuda_device)[1:].view(B, vp)
+    shifted.copy_(X)
+    for Xk in (X, shifted):
+        before = score_rows.f32_launches
+        s_k, hx_k = score_rows(st, Xk, want_hx=True)
+        assert score_rows.f32_launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(hx_k, hx_p) and torch.equal(s_k, s_p)
+
+
+@pytest.mark.parametrize("B", [32, 65])
+def test_batched_f32_score_rows_is_bitwise(cuda_device, tmp_path, B):
+    """K1's f32 path with a case axis (G = 3 stacked programs with FBI
+    coefficients halved, so no case is int8-exact) against one
+    single-case launch per case and the plain loop, in both regimes."""
+    import dataclasses
+
+    progs = [simulated_prog(tmp_path, seed=s, n_segments=n, mode="nested") for s, n in ((2, 24), (3, 20), (4, 24))]
+    progs = [dataclasses.replace(p, A_fbi=p.A_fbi * 0.5) for p in progs]
+    st = stack_cases(progs, cuda_device)
+    assert not st.int8_ok and k1_planes(st) == 0
+    rng = np.random.default_rng(B)
+    G, rows, Vp = st.H.shape
+    X = np.zeros((G, B, Vp), dtype=np.float32)
+    for g, prog in enumerate(progs):
+        X[g, :, : prog.num_vars] = np.minimum(rng.integers(0, 3, size=(B, prog.num_vars)), prog.x_ub)
+    X *= rng.random(X.shape) < 0.05
+    X = torch.as_tensor(X).to(cuda_device)
+    before = score_rows.f32_launches
+    s_b, hx_b = score_rows(st, X, want_hx=True)
+    assert score_rows.f32_launches == before + 1
+    s_p, hx_p = score_rows_plain(st, X, want_hx=True)
+    torch.cuda.synchronize()
+    assert float(s_p.max()) < 2.0**22
+    assert torch.equal(hx_b, hx_p) and torch.equal(s_b, s_p)
+    for g in range(G):
+        s_g, hx_g = score_rows(st.case(g), X[g].contiguous(), want_hx=True)
+        assert torch.equal(s_g, s_b[g]) and torch.equal(hx_g, hx_b[g])
+
+
+@pytest.mark.parametrize("B", [32, 1000])
+def test_score_rows_f32_on_the_noisy_s48_case(cuda_device, tmp_path, B):
+    """K1's f32 path on the S=48 seed-0 suite case (noise 0.05) with its
+    FBI coefficients halved, at search-like candidates: hx bitwise equal
+    to the plain version (every partial sum is a multiple of 0.25 below
+    2^24), the scores within rel 1e-5 (fractional targets: the hinges
+    round, and the two versions sum them in different orders)."""
+    import dataclasses
+
+    from ambigram_tpu_torch.solver.host import _seed_case
+
+    prog = simulated_prog(tmp_path, seed=0, n_segments=48, rounds=5, coverage=30.0, mode="process", noise=0.05)
+    prog = dataclasses.replace(prog, A_fbi=prog.A_fbi * 0.5)
+    st = scoring_tensors(prog, cuda_device)
+    assert k1_planes(st) == 0
+    x_ub = st.x_ub.cpu().numpy()
+    X, _ = _seed_case(prog, len(x_ub), x_ub, B, 2)
+    rng = np.random.default_rng(B)
+    for b in range(B):
+        np.add.at(X[b], rng.integers(0, prog.num_vars, size=4), rng.choice([-2.0, -1.0, 1.0, 2.0], size=4))
+    X = torch.as_tensor(np.clip(X, 0.0, x_ub).astype(np.float32)).to(cuda_device)
+    s_k, hx_k = score_rows(st, X, want_hx=True)
+    s_p, hx_p = score_rows_plain(st, X, want_hx=True)
+    torch.cuda.synchronize()
+    assert torch.equal(hx_k, hx_p)
+    assert float(((s_k - s_p).abs() / s_p.abs().clamp(min=1.0)).max()) <= 1e-5
+
+
+@pytest.mark.slow
+def test_bounded_s128_search_on_card(cuda_device, tmp_path):
+    """The big leg's recipe at S=128 (seed 428, noise 0.05) fails the
+    int8 gate, so a bounded device search (one round, one sweep, no
+    polish, no certificate) rescores through K1's f32 path only: at
+    least two launches (the first scoring and the rescoring after the
+    kick), none on the int8 path, and an integral x inside the box."""
+    from ambigram_tpu_torch.solver.score import reset_launch_counts
+
+    prog = extract_programs(bench.big_case_path(str(tmp_path), 128))[0]
+    assert k1_planes(scoring_tensors(prog, "cpu", need_f32=False)) == 0
+    reset_launch_counts()
+    res = search.solve_device(prog, device="cuda", rounds=1, max_sweeps=1, polish=False, certify=False)
+    assert score_rows.f32_launches >= 2 and score_rows.int8_launches == 0
+    x = np.asarray(res.x, dtype=np.float64)
+    assert np.array_equal(x, np.round(x)) and (x >= 0).all() and (x <= prog.x_ub).all()
 
 
 def test_search_on_cuda_follows_the_cpu_trajectory(cuda_device, monkeypatch):
