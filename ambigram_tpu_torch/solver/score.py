@@ -671,7 +671,12 @@ chained_score.launches = 0
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch counts to 0."""
+    """Set every kernel's launch counts to 0: K1's, K2's and the sweep
+    kernel's (solver/sweeps.py `launch_sweep`)."""
+    from ambigram_tpu_torch.solver.sweeps import launch_sweep
+
     with _COUNT_LOCK:
         score_rows.launches = score_rows.int8_launches = score_rows.f32_launches = 0
         chained_score.launches = 0
+        launch_sweep.launches = 0
+        launch_sweep.by_kind = [0, 0, 0]

@@ -4,11 +4,18 @@ Port of ambigram_tpu/solver/search.py: population steepest descent over
 three tiered move neighborhoods (solver/sweeps.py), basin hopping with
 random kicks, then the host tail (LNS polish and the LP certificate),
 for one case (`solve_device`, a group of one) and for a list of cases
-searched in case-stacked same-shape groups (`solve_device_batch`). JAX's
-`lax.while_loop`/`lax.cond` become a host loop that reads one
-`improved` flag per sweep, and `jax.random` becomes a `torch.Generator`
-per case, so a search's trajectory differs from the JAX one after its
-first kick; its quality is what the tests compare.
+searched in case-stacked same-shape groups (`solve_device_batch`).
+
+The descent is JAX's device program: its `lax.while_loop` carry and
+`lax.cond` tier gates are state words on the device that every sweep
+launch reads (solver/sweeps.py), the sweeps are the hand-written kernel
+csrc/sweeps.cu on a card, and the host queues blocks of iterations and
+reads one word per block. The basin-hopping rounds read one flag per
+round on the host. So several groups can search at once, and
+`solve_device_batch` keeps JAX's window of `MAX_INFLIGHT` groups in
+flight, each on its own CUDA stream. `jax.random` becomes a
+`torch.Generator` per case, so a search's trajectory differs from the
+JAX one after its first kick; its quality is what the tests compare.
 
 The full rescorings of a round, at the start and after each kick, go
 through `score_rows`: the hand-written CUDA kernel K1 on a card (one
@@ -17,6 +24,7 @@ launch for a whole case-stacked group), its plain version on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -36,11 +44,13 @@ from ambigram_tpu_torch.solver.host import (
 )
 from ambigram_tpu_torch.parallel.mesh import stack_cases
 from ambigram_tpu_torch.solver.score import ScoringTensors, score_rows
-from ambigram_tpu_torch.solver.sweeps import sweep_delta, sweep_moves, sweep_moves3
+from ambigram_tpu_torch.solver.sweeps import SweepOps, new_state
 from ambigram_tpu_torch.utils.profiling import GLOBAL
 
 _KICK_SIGNS = (-2.0, -1.0, 1.0, 2.0)
 _N_KICKS = 4
+DESCEND_BLOCK = 8  # descent iterations queued between two reads of the state words
+MAX_INFLIGHT = 4  # case-stacked groups in flight in solve_device_batch, JAX's max_inflight
 
 
 def resolve_device(device) -> torch.device:
@@ -73,25 +83,38 @@ def descend_loop(
     is only a few times tier 1's cost), tier 3 only when NO case
     improved at tiers 1 and 2. Every tier sweeps every case; a converged
     case rides along, since accepts are strictly improving. For one case
-    both gates are the rule above. Reads two flags per sweep on the
-    host."""
-    it = n_mv = n_m3 = 0
-    improved = True
-    while improved and it < max_sweeps:
-        X, hx, scores, imp1 = sweep_delta(st, X, hx, scores, chunk=chunk)
-        all1, any1 = (bool(v) for v in torch.stack([imp1.all(), imp1.any()]).tolist())
-        any2 = any3 = False
-        if moves is not None and not all1:
-            X, hx, scores, imp2 = sweep_moves(st, X, hx, scores, *moves, chunk=chunk)
-            n_mv += 1
-            any2 = bool(imp2.any())
-        if moves3 is not None and not (any1 or any2):
-            X, hx, scores, imp3 = sweep_moves3(st, X, hx, scores, *moves3, chunk=chunk)
-            n_m3 += 1
-            any3 = bool(imp3.any())
-        improved = any1 or any2 or any3
-        it += 1
-    return X, hx, scores, it, n_mv, n_m3
+    both gates are the rule above.
+
+    JAX's while_loop carry and lax.cond predicates live in the state
+    words of `new_state`, which every sweep reads for its gate
+    (`SweepOps`). The host queues `DESCEND_BLOCK` iterations at a time
+    (`descend_block`) and reads the words once per block; an iteration
+    after convergence or past `max_sweeps` is a no-op and counts nothing,
+    so the result and the counts are JAX's whatever the block size. On a
+    card the sweeps are the kernel of csrc/sweeps.cu and a block makes no
+    host sync; on the CPU they are the plain sweeps, gated on the host."""
+    ops = SweepOps(st, X, moves, moves3, chunk)
+    if ops.cuda:
+        # the kernel updates in place; the caller's tensors stay as they were
+        X, hx, scores = X.clone(), hx.clone(), scores.clone()
+    state = new_state(max_sweeps, X.device)
+    while True:
+        X, hx, scores = descend_block(ops, X, hx, scores, state, DESCEND_BLOCK)
+        improved, it, n_mv, n_m3 = state[:4].tolist()
+        if not improved or it >= max_sweeps:
+            return X, hx, scores, it, n_mv, n_m3
+
+
+def descend_block(ops: SweepOps, X, hx, scores, state: torch.Tensor, n: int):
+    """Queue `n` gated descent iterations (each: the tiers of `ops`, each
+    sweep followed by the fold of its flags into `state`); returns (X, hx,
+    scores). On a card it reads nothing back."""
+    last = ops.tiers[-1]
+    for _ in range(n):
+        for kind in ops.tiers:
+            X, hx, scores = ops.sweep(kind, X, hx, scores, state)
+            ops.settle(kind, state, last=kind == last)
+    return X, hx, scores
 
 
 def _kick(X: torch.Tensor, best_x: torch.Tensor, x_ub: torch.Tensor, gen: torch.Generator):
@@ -133,9 +156,10 @@ def batch_search(
 
     Scores are compared in f32 as in the JAX loop. `gens` (CPU
     generators, one per case) draw the kicks, so a CPU and a CUDA run of
-    one seed follow the same trajectory. Reads one flag per round and
-    two per sweep on the host (the port's stand-in for the JAX
-    while_loop)."""
+    one seed follow the same trajectory. Reads one flag per round (the
+    port's stand-in for JAX's round while_loop) and, inside
+    `descend_loop`, the state words once per block of descent
+    iterations."""
     G = X.shape[0]
     scores, hx = score_rows(st, X, want_hx=True)
     best_x = X[:, 0].clone()
@@ -413,29 +437,32 @@ def solve_device_batch(
     they mean to `solve_device`. Returns [SolveResult] aligned with
     `progs`.
 
-    The groups search one after another, largest first, on the calling
-    thread: the search loop reads flags from the card every sweep, so a
-    second group could not be queued behind the first as JAX's
-    asynchronous dispatch queued it. Each finished group's per-case host
+    Up to `MAX_INFLIGHT` (4, JAX's window) groups are in flight at once,
+    largest first in JAX's order (-cases x variables): each is seeded,
+    stacked and searched on a thread of its own and, on a card, on a
+    CUDA stream of its own, so the host seeds the next groups while the
+    card searches the first. The oldest group is drained first; as it
+    retires the next one starts. Each finished group's per-case host
     tail (`_finish_solution`: LNS probe or polish, certificate) runs on
-    a pool of `post_workers` threads while the next group searches; the
-    seeding LPs of a group run on as many. As in the JAX package, case i
-    seeds its population with seed + i; a group's k-th case draws its
-    kicks from seed + k, a lone case from its own seed + i."""
+    a pool of `post_workers` threads; the seeding LPs of a group run on
+    as many. A group's search depends only on its own cases and seeds,
+    so every case's result is the one a window of 1 gives. As in the JAX
+    package, case i seeds its population with seed + i; a group's k-th
+    case draws its kicks from seed + k, a lone case from its own
+    seed + i."""
     device = resolve_device(device)
     groups: dict = {}
     for i, prog in enumerate(progs):
         groups.setdefault((prog.start, prog.end, prog.num_vars), []).append(i)
     ordered = [idxs for _, idxs in sorted(groups.items(), key=lambda kv: -len(kv[1]) * kv[0][2])]
-    results: List[Optional[SolveResult]] = [None] * len(progs)
-    tails = []
-    with ThreadPoolExecutor(max_workers=post_workers) as pool:
-        for idxs in ordered:
-            Gp = 1
-            while Gp < len(idxs):
-                Gp *= 2
-            padded = idxs + [idxs[-1]] * (Gp - len(idxs))
-            kick_seeds = [seed + i for i in idxs] if Gp == 1 else [seed + k for k in range(Gp)]
+
+    def search_group(idxs: List[int]) -> dict:
+        Gp = 1
+        while Gp < len(idxs):
+            Gp *= 2
+        padded = idxs + [idxs[-1]] * (Gp - len(idxs))
+        kick_seeds = [seed + i for i in idxs] if Gp == 1 else [seed + k for k in range(Gp)]
+        with _group_stream(device):
             d = _dispatch(
                 [progs[i] for i in padded],
                 [seed + i for i in padded],
@@ -447,8 +474,26 @@ def solve_device_batch(
                 certify=certify,
                 post_workers=post_workers,
             )
+            # to the host on the group's own stream, before it is drained
+            for key in ("best_x", "best_s", "stagnant"):
+                d[key] = d[key].cpu()
+        d["idxs"] = idxs
+        return d
+
+    results: List[Optional[SolveResult]] = [None] * len(progs)
+    tails = []
+    with ThreadPoolExecutor(max_workers=post_workers) as pool, ThreadPoolExecutor(
+        max_workers=MAX_INFLIGHT
+    ) as window:
+        pending: List = []
+        next_up = 0
+        while next_up < len(ordered) or pending:
+            while next_up < len(ordered) and len(pending) < MAX_INFLIGHT:
+                pending.append(window.submit(search_group, ordered[next_up]))
+                next_up += 1
+            d = pending.pop(0).result()  # the oldest: furthest along
             best = _block_and_account(d)
-            for k, i in enumerate(idxs):
+            for k, i in enumerate(d["idxs"]):
                 tails.append(
                     (
                         i,
@@ -467,3 +512,14 @@ def solve_device_batch(
         for i, fut in tails:
             results[i] = fut.result()
     return results
+
+
+@contextlib.contextmanager
+def _group_stream(device: torch.device):
+    """A CUDA stream of its own for one group's search on `device` (its
+    thread's current stream while it runs); nothing on the CPU."""
+    if device.type != "cuda":
+        yield
+        return
+    with torch.cuda.device(device), torch.cuda.stream(torch.cuda.Stream(device)):
+        yield

@@ -30,14 +30,25 @@ Every sweep also takes a leading case axis G: `st` a case-stacked set
 case keeps the first-minimum argmin and the strict-improvement rule. A
 chunk's temporary grows to [G, B, chunk, Rows]: at S=48 and G=8 that is
 8 x 32 x 128 x 8192 f32 = 1.07 GB, which fits on an 80 GB card.
+
+These plain sweeps serve CPU tensors, the tests and the comparisons on
+the card. On a card the search runs the hand-written kernel
+csrc/sweeps.cu instead (`SweepOps`, `sweep_kernel`): it scores a whole
+sweep without the temporary, and its launches read their tier gates
+from state words on the device (`new_state`), so the host can queue a
+block of descent iterations and read one flag per block.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+from typing import List, Optional
+
 import torch
 import torch.nn.functional as F
 
-from ambigram_tpu_torch.solver.score import ScoringTensors
+from ambigram_tpu_torch.solver.score import _COUNT_LOCK, ScoringTensors
 
 
 def _operands(st: ScoringTensors, X, hx, scores):
@@ -224,3 +235,292 @@ def sweep_moves3(
     hx_out = torch.where(improved[..., None], hx + col, hx)
     s_out = torch.where(improved, best_score, scores)
     return _result(single, X_out, hx_out, s_out, improved)
+
+
+# ------------------------------------------- the sweep kernel (csrc/sweeps.cu)
+
+KINDS = ("delta", "moves", "moves3")  # the kernel's sweep kinds 0, 1, 2
+PLAIN_SWEEPS = {"delta": sweep_delta, "moves": sweep_moves, "moves3": sweep_moves3}  # by kind
+
+# The descent's state words on the device, mirrored by csrc/sweeps.cu: JAX's
+# while_loop carry (improved, it, the paired and triple sweep counts; the
+# delta sweeps are `it`), the current iteration's per-tier flags (any case
+# improved at tier 1, every case did, any at tier 2, any at tier 3) and the
+# sweep budget.
+S_IMPROVED, S_IT, S_N_MV, S_N_M3, S_ANY1, S_ALL1, S_ANY2, S_ANY3, S_MAX_SWEEPS = range(9)
+STATE_WORDS = 16
+
+
+def new_state(max_sweeps: int, device) -> torch.Tensor:
+    """The state words of a fresh descent on `device` (int32): improved,
+    no sweep taken yet, budget `max_sweeps`. Filled on the device, so it
+    makes no host sync."""
+    state = torch.zeros(STATE_WORDS, dtype=torch.int32, device=device)
+    state[S_IMPROVED] = 1
+    state[S_MAX_SWEEPS] = int(max_sweeps)
+    return state
+
+
+def sweep_gate(words: List[int], kind: int) -> bool:
+    """The tier gate of a sweep of `kind` on the state words (the kernel's
+    `sweep_gate`): JAX's lax.cond predicates. Every tier needs the loop
+    active (improved and it < max_sweeps); tier 2 runs unless every case
+    improved at tier 1, tier 3 only when no case improved at tiers 1 and
+    2. For one case both are the single-case rules."""
+    if not (words[S_IMPROVED] and words[S_IT] < words[S_MAX_SWEEPS]):
+        return False
+    if kind == 0:
+        return True
+    if kind == 1:
+        return not words[S_ALL1]
+    return not (words[S_ANY1] or words[S_ANY2])
+
+
+def settle_state(words: List[int], kind: int, case_improved: List[bool], last: bool) -> None:
+    """The kernel's `sweep_state_kernel` on host words, in place: fold the
+    per-case improved flags of a sweep of `kind` into the tier's flags and
+    count the sweep; after the `last` tier of an iteration, set improved
+    and advance it. Nothing changes once the loop is inactive."""
+    if not (words[S_IMPROVED] and words[S_IT] < words[S_MAX_SWEEPS]):
+        return
+    if sweep_gate(words, kind):
+        any_, all_ = int(any(case_improved)), int(all(case_improved))
+        if kind == 0:
+            words[S_ANY1], words[S_ALL1] = any_, all_
+        elif kind == 1:
+            words[S_ANY2] = any_
+            words[S_N_MV] += 1
+        else:
+            words[S_ANY3] = any_
+            words[S_N_M3] += 1
+    if last:
+        words[S_IMPROVED] = int(bool(words[S_ANY1] or words[S_ANY2] or words[S_ANY3]))
+        words[S_IT] += 1
+        words[S_ANY1] = words[S_ALL1] = words[S_ANY2] = words[S_ANY3] = 0
+
+
+_SWEEPS_ARGTYPES = (
+    [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+    + [ctypes.c_void_p] * 5
+)
+
+
+def _library() -> ctypes.CDLL:
+    from ambigram_tpu_torch import kernels
+
+    lib = kernels.load("sweeps")
+    if lib.sweeps_launch.argtypes is None:
+        lib.sweeps_launch.argtypes = _SWEEPS_ARGTYPES
+        lib.sweeps_launch.restype = ctypes.c_int
+        lib.sweeps_state_launch.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+        lib.sweeps_state_launch.restype = ctypes.c_int
+        lib.sweeps_error_string.argtypes = [ctypes.c_int]
+        lib.sweeps_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+class SweepOps:
+    """The three sweeps of one descent over a case-stacked group (`st`
+    from `stack_cases`, X [G, B, Vp]; one case, X [B, Vp], is a group of
+    one), gated by the state words of `new_state`.
+
+    On CUDA tensors `sweep` launches the kernel of csrc/sweeps.cu
+    (`launch_sweep`) in place on X, hx and scores, and `settle` folds the
+    members' flags into the state with `sweep_state_kernel`: neither reads
+    the card, so a block of iterations makes no host sync. On CPU tensors
+    `sweep` reads the gate on the host and runs the plain sweep, and
+    `settle` updates the words with `settle_state`. The catalogues are
+    shared by the group; `tiers` lists the kinds this descent runs."""
+
+    def __init__(self, st: ScoringTensors, X: torch.Tensor, moves=None, moves3=None, chunk: int = 128):
+        self.st, self.chunk = st, chunk
+        self.cats = {0: (), 1: moves, 2: moves3}
+        self.tiers = [k for k in (0, 1, 2) if self.cats[k] is not None]
+        self.cuda = X.device.type == "cuda"
+        self.G = 1 if X.dim() == 2 else X.shape[0]
+        self.B, Vp = X.shape[-2:]
+        self._case_improved: List[bool] = []
+        if not self.cuda:
+            return
+        lead = (1,) if X.dim() == 2 else ()
+
+        def cased(t: torch.Tensor) -> torch.Tensor:
+            return t.reshape(lead + tuple(t.shape)).contiguous()
+
+        self.HT = cased(st.columns())
+        self.lb, self.ub, self.x_ub = cased(st.lb), cased(st.ub), cased(st.x_ub)
+        if Vp % chunk:
+            raise ValueError("Vp %d is not a multiple of the chunk %d" % (Vp, chunk))
+        dev = X.device
+        self.operands = {0: (None, None, None, None, None, 2 * Vp)}
+        if moves is not None:
+            mm, mp = (t.to(device=dev, dtype=torch.int32).contiguous() for t in moves)
+            self.operands[1] = (mm, mp, None, None, None, (mm.shape[0] // chunk) * chunk)
+        if moves3 is not None:
+            a, b, c, s, valid = moves3
+            i32 = [t.to(device=dev, dtype=torch.int32).contiguous() for t in (a, b, c)]
+            s = s.to(device=dev, dtype=torch.float32).contiguous()
+            valid = valid.to(device=dev, dtype=torch.uint8).contiguous()
+            self.operands[2] = (*i32, s, valid, (a.shape[0] // chunk) * chunk)
+        # one key per member (all ones between sweeps) and its improved flag
+        self.best = torch.full((self.G, self.B), -1, dtype=torch.int64, device=dev)
+        self.imp = torch.zeros((self.G, self.B), dtype=torch.int32, device=dev)
+
+    def sweep(self, kind: int, X, hx, scores, state: torch.Tensor):
+        """One gated sweep of `kind`; returns (X, hx, scores)."""
+        if self.cuda:
+            launch_sweep(self, kind, X, hx, scores, state)
+            return X, hx, scores
+        words = state.tolist()
+        if not sweep_gate(words, kind):
+            return X, hx, scores
+        plain = PLAIN_SWEEPS[KINDS[kind]]
+        X, hx, scores, improved = plain(self.st, X, hx, scores, *self.cats[kind], chunk=self.chunk)
+        self._case_improved = [bool(v) for v in improved.reshape(-1).tolist()]
+        return X, hx, scores
+
+    def settle(self, kind: int, state: torch.Tensor, last: bool) -> None:
+        """Fold the last sweep of `kind` into the state words."""
+        if self.cuda:
+            lib = _library()
+            with _on_device(state.device):
+                err = lib.sweeps_state_launch(
+                    kind, int(last), self.G, self.B, self.imp.data_ptr(), state.data_ptr(),
+                    torch.cuda.current_stream(state.device).cuda_stream,
+                )
+            if err != 0:
+                raise RuntimeError("sweeps state kernel launch failed: %s (cudaError %d)"
+                                   % (lib.sweeps_error_string(err).decode(), err))
+            return
+        words = state.tolist()
+        settle_state(words, kind, self._case_improved, last)
+        state.copy_(torch.tensor(words, dtype=state.dtype))
+
+
+def _on_device(dev: torch.device):
+    """The device guard for a launch on `dev` (none when it is current)."""
+    if dev.index is not None and dev.index != torch.cuda.current_device():
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+def launch_sweep(
+    ops: SweepOps, kind: int, X, hx, scores, state: torch.Tensor, move_scores: Optional[torch.Tensor] = None
+) -> None:
+    """Launch one sweep of `kind` (0 delta, 1 paired, 2 triple) of the
+    kernel csrc/sweeps.cu, in place on X [G, B, Vp], hx [G, B, Rows] and
+    scores [G, B] (or the same without G for one case), gated by the
+    state words; `ops.imp` receives the members' improved flags, and
+    `move_scores` ([G, B, M] f32, for checks), when given, every move's
+    hinge sum in the order of `move_scores_plain`. CUDA tensors only;
+    raises on any fault. `launch_sweep.launches` counts the
+    launches, `launch_sweep.by_kind` each kind's (gated-off ones too: the
+    host does not know the gate)."""
+    tensors = (X, hx, scores)
+    if any(t.device.type != "cuda" or t.device != state.device or t.device != ops.HT.device for t in tensors):
+        raise ValueError("launch_sweep runs on CUDA tensors on one device, the scoring tensors' and the state's")
+    if any(t.dtype != torch.float32 or not t.is_contiguous() for t in tensors):
+        raise ValueError("X, hx and scores must be contiguous float32 tensors")
+    lead = (ops.G, ops.B)
+    if (
+        X.shape[-2:] != (ops.B, ops.HT.shape[1])
+        or hx.shape[-2:] != (ops.B, ops.HT.shape[2])
+        or X.numel() != ops.G * ops.B * ops.HT.shape[1]
+        or scores.numel() != ops.G * ops.B
+        or hx.numel() != ops.G * ops.B * ops.HT.shape[2]
+    ):
+        raise ValueError("X %s, hx %s, scores %s do not match the group %s" % (
+            tuple(X.shape), tuple(hx.shape), tuple(scores.shape), lead))
+    if state.dtype != torch.int32 or state.numel() != STATE_WORDS:
+        raise ValueError("state must be the %d int32 words of new_state" % STATE_WORDS)
+    a, b, c, s, valid, M = ops.operands[kind]
+    if M == 0:
+        raise ValueError("the %s catalogue has no full chunk of %d" % (KINDS[kind], ops.chunk))
+    if move_scores is not None and (
+        move_scores.dtype != torch.float32
+        or not move_scores.is_contiguous()
+        or move_scores.numel() != ops.G * ops.B * M
+        or move_scores.device != X.device
+    ):
+        raise ValueError("move_scores must be a contiguous float32 [G, B, %d] tensor on X's device" % M)
+    lib = _library()
+
+    def ptr(t: Optional[torch.Tensor]):
+        return t.data_ptr() if t is not None else None
+
+    rows, vp = ops.HT.shape[2], ops.HT.shape[1]
+    with _on_device(X.device):
+        err = lib.sweeps_launch(
+            kind, ptr(a), ptr(b), ptr(c), ptr(s), ptr(valid), M, ops.chunk,
+            ops.HT.data_ptr(), ops.lb.data_ptr(), ops.ub.data_ptr(), ops.x_ub.data_ptr(),
+            X.data_ptr(), hx.data_ptr(), scores.data_ptr(),
+            ops.G, ops.B, rows, vp,
+            state.data_ptr(), ops.best.data_ptr(), ops.imp.data_ptr(), ptr(move_scores),
+            torch.cuda.current_stream(X.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            "sweeps kernel launch failed: %s (cudaError %d)" % (lib.sweeps_error_string(err).decode(), err)
+        )
+    with _COUNT_LOCK:
+        launch_sweep.launches += 1
+        launch_sweep.by_kind[kind] += 1
+
+
+launch_sweep.launches = 0
+launch_sweep.by_kind = [0, 0, 0]
+
+
+def sweep_kernel(
+    kind: str, st: ScoringTensors, X, hx, scores, *catalogue, chunk: int = 128, state=None, want_move_scores=False
+):
+    """One sweep of `kind` ("delta", "moves" or "moves3") through the
+    kernel, called as the plain sweep of that kind is and returning what
+    it returns, (X', hx', scores', improved_any), on copies of X, hx and
+    scores; with `want_move_scores` also every move's hinge sum (see
+    `move_scores_plain`). `state` (default: `new_state(1)`, so the sweep
+    runs) gates it: a gated-off launch returns the inputs' values and no
+    improvement. CUDA tensors only."""
+    k = KINDS.index(kind)
+    if X.device.type != "cuda":
+        raise ValueError("sweep_kernel runs on CUDA tensors; the plain sweeps serve the CPU")
+    cats = {0: {}, 1: {"moves": catalogue}, 2: {"moves3": catalogue}}[k]
+    ops = SweepOps(st, X, chunk=chunk, **cats)
+    X2, hx2, s2 = X.clone(), hx.clone(), scores.clone()
+    state = new_state(1, X.device) if state is None else state
+    ms = None
+    if want_move_scores:
+        ms = torch.zeros(tuple(X.shape[:-1]) + (ops.operands[k][-1],), dtype=torch.float32, device=X.device)
+    launch_sweep(ops, k, X2, hx2, s2, state, ms)
+    improved = ops.imp.bool().any(dim=-1)
+    out = (X2, hx2, s2, improved[0] if X.dim() == 2 else improved)
+    return out + (ms,) if want_move_scores else out
+
+
+def move_scores_plain(kind: str, st: ScoringTensors, hx: torch.Tensor, *catalogue, chunk: int = 128) -> torch.Tensor:
+    """Every move's hinge sum of one sweep in plain PyTorch, before the
+    validity mask: [..., B, M] for hx [..., B, Rows]. The moves are in
+    the kernel's order: the delta sweep's chunk by chunk, [+chunk |
+    -chunk]; a catalogue's in its own order, whole chunks only."""
+    single = hx.dim() == 2
+    HT, lb, ub = st.columns(), st.lb, st.ub
+    if single:
+        HT, lb, ub, hx = HT[None], lb[None], ub[None], hx[None]
+    Vp = HT.shape[1]
+    parts = []
+    if kind == "delta":
+        for c0 in range(0, (Vp // chunk) * chunk, chunk):
+            Hc = HT[:, c0 : c0 + chunk]
+            parts += [_hinge_sum(lb, ub, hx, Hc), _hinge_sum(lb, ub, hx, -Hc)]
+    else:
+        M = (catalogue[0].shape[0] // chunk) * chunk
+        for c0 in range(0, M, chunk):
+            if kind == "moves":
+                mm, mp = (t[c0 : c0 + chunk] for t in catalogue)
+                D = HT[:, mp] - HT[:, mm]
+            else:
+                a, b, c, s = (t[c0 : c0 + chunk] for t in catalogue[:4])
+                D = (HT[:, b] + HT[:, c] - HT[:, a]) * s[:, None]
+            parts.append(_hinge_sum(lb, ub, hx, D))
+    out = torch.cat(parts, dim=-1)
+    return out[0] if single else out

@@ -8,8 +8,9 @@ and prints no result line:
 1. the card: nvidia-smi's name and power limit; a CUDA device must exist;
 2. build every kernel of the port's paths from csrc/ (nvcc, sm_90a), one
    nvcc per source, all started together; ptxas's register and spill
-   report (K1's f32 kernels must spill nothing), and the tensor-core
-   instructions in each library's SASS (cuobjdump), which must be there;
+   report (K1's f32 kernels and the sweep kernels must spill nothing),
+   and the tensor-core instructions in K1's and K2's SASS (cuobjdump),
+   which must be there;
 3. K1 (`score_rows`, csrc/score_rows.cu) against its plain PyTorch
    version on the tensors of the S=48 seed-0 case, on its int8
    tensor-core path, at B=32 (the search's population) and B=1000
@@ -22,12 +23,21 @@ and prints no result line:
    the plain version and one `torch.matmul(X, H.T)` in f32, each after
    an L2 flush, beside the least time the card could take, and the host
    time each takes to queue a call;
+3b. the sweep kernel (`launch_sweep`, csrc/sweeps.cu) against the plain
+   sweeps (solver/sweeps.py) on seeds 0-7 of the S=48 suite recipe,
+   case-stacked at G=1 and G=8, B=32: on the noise-free twins each kind
+   (delta, paired, triple) for a few sweeps in lockstep, X', hx', scores'
+   and the improved flags bitwise equal; on the noisy cases every move's
+   hinge sum within rtol 1e-5; then each kind's device time at G=1 and
+   G=8 beside the plain sweep's and the bound. No single PyTorch call
+   computes this function, so it has no library time;
 4. the single-case slice: the S=48 seed-0 case of the repo's 4xS48 suite
    through `python -m ambigram_tpu_torch.cli --op bfb --solver auto` on
    cuda, in process. Its program has more than 2048 variables, so auto
    sends it to the device search; the run must go through K1's int8
-   path, print a path, and reach a feasible solution with eps <= 8.2245
-   (+1e-4), the value the host MILP and the JAX auto path reach;
+   path and the sweep kernel, print a path, and reach a feasible solution
+   with eps <= 8.2245 (+1e-4), the value the host MILP and the JAX auto
+   path reach;
 5. K2 (`chained_score`, csrc/chained_score.cu) against its plain version:
    on a small random int8 program (B=256, 5 rounds, every sum exact) the
    final candidates bitwise equal and the checksum within rel 1e-6; on
@@ -133,7 +143,11 @@ manifest, the S=64 slice, the golden suite, the sharded solves of phase
 17, the mesh batch of phase 18 and the S=128 search of phase 20), each
 driven with the counts set to 0 just before it and read just after; the
 row-shard entry counts phase 17's launches, every one of which is a row
-shard's, and the f32 block of the K1 entry phase 20's.
+shard's, and the f32 block of the K1 entry phase 20's. Every one of those
+paths but the chain leg and the sharded solves runs the device search,
+and each must launch the sweep kernel; its entry counts the sweeps
+launched (gated-off launches included: their gates are read on the
+card).
 """
 
 from __future__ import annotations
@@ -605,6 +619,151 @@ def check_k2() -> dict:
             "library_ms": lib, "bound_ms": bnd, "bound_by": by}
 
 
+SWEEP_LOCKSTEP = {1: 3, 8: 2}  # sweeps held bitwise against plain, by group size
+
+
+def sweep_bound(st, B: int, kind: str, M: int):
+    """The least time of one sweep of `kind` over M moves for G cases of
+    B members: the bytes (HT, the row bounds, x_ub, the catalogue read
+    once; X, hx and the scores read and written once) over the HBM rate,
+    or 7 f32 operations a hinge (add, two subs, two max, two adds) for
+    every case, member, move and row over the f32 peak, the larger."""
+    G, vp, rows = st.columns().shape
+    per_move = {"delta": 0, "moves": 8, "moves3": 17}[kind]
+    bytes_moved = G * (vp * rows * 4 + 2 * rows * 4 + vp * 4) + M * per_move + 2 * G * B * (vp + rows + 1) * 4
+    return bound_ms(bytes_moved, 7.0 * G * B * M * rows, F32_OPS_PER_S)
+
+
+def sweep_group(progs):
+    """(stacked tensors, X, hx, scores, catalogues by kind) on the card:
+    the programs case-stacked, the search's population (B=32) per case,
+    its exact hx and scores."""
+    import numpy as np
+    import torch
+
+    from ambigram_tpu_torch.parallel.mesh import stack_cases
+    from ambigram_tpu_torch.solver.score import score_rows_plain
+    from ambigram_tpu_torch.solver.search import _device_moves
+
+    st = stack_cases(progs, DEVICE)
+    x_ub = st.x_ub.cpu().numpy()
+    X = torch.as_tensor(np.stack([population(p, x_ub[g], 32, seed=g) for g, p in enumerate(progs)])).to(DEVICE)
+    scores, hx = score_rows_plain(st, X, want_hx=True)
+    moves, moves3 = _device_moves(progs[0], torch.device(DEVICE))
+    return st, X, hx, scores, {"delta": (), "moves": moves, "moves3": moves3}
+
+
+def sweep_programs(workdir: str, prog_exact, prog_noisy):
+    """The S=48 programs of phase 3b: seeds 0-7 of the suite recipe
+    (one interval, so they stack), noise-free and noisy, seed 0 being
+    the slice's case and its twin."""
+    from ambigram_tpu_torch.engine.pipeline import extract_programs
+    from ambigram_tpu_torch.scripts.simulate import simulate_bfb_case, write_case
+
+    exact, noisy = [prog_exact], [prog_noisy]
+    for seed in range(1, max(SWEEP_LOCKSTEP)):
+        for noise, out in ((0.0, exact), (0.05, noisy)):
+            case = simulate_bfb_case(seed=seed, noise=noise, **SUITE)
+            lh = write_case(case, os.path.join(workdir, "sweeps_s%d_n%g" % (seed, noise)))["lh"]
+            out.append(extract_programs(lh)[0])
+    return exact, noisy
+
+
+def check_sweeps(progs_exact, progs_noisy) -> dict:
+    """Phase 3b: the sweep kernel (csrc/sweeps.cu) against the plain
+    sweeps, then its times. On the S=48 noise-free twins (integer
+    targets), case-stacked at G=1 and G=8 (seeds 0-7), each kind in
+    lockstep for a few sweeps: X', hx', scores' and the per-case improved
+    flags bitwise. On the noisy cases (G=1 and G=8) every move's hinge sum
+    within rtol 1e-5 of the plain one (the rows are summed in another
+    order). Then each kind's device time at G=1 and G=8, back to back as
+    the descent runs them, beside the plain sweep's and the bound. No
+    single PyTorch call computes this function (a hinge sum of column
+    deltas, a masked first-minimum fold and the apply), so it has no
+    library time."""
+    import torch
+
+    from ambigram_tpu_torch.solver import sweeps
+
+    for G, steps in SWEEP_LOCKSTEP.items():
+        st, X0, hx0, s0, cats = sweep_group(progs_exact[:G])
+        for kind in sweeps.KINDS:
+            X, hx, s = X0, hx0, s0
+            improved = 0
+            for step in range(steps):
+                want = sweeps.PLAIN_SWEEPS[kind](st, X, hx, s, *cats[kind])
+                got = sweeps.sweep_kernel(kind, st, X, hx, s, *cats[kind])
+                torch.cuda.synchronize()
+                for name, a, b in zip(("X", "hx", "scores", "improved"), got, want):
+                    if not torch.equal(a, b):
+                        raise AssertionError("sweep %s G=%d step %d: %s differs from plain" % (kind, G, step, name))
+                improved += int(want[3].sum())
+                X, hx, s = want[:3]
+            log("sweeps %s noise0 G=%d B=32: %d sweeps bitwise equal to plain (X, hx, scores, improved), "
+                "%d case-sweeps improved" % (kind, G, steps, improved))
+        del st, X0, hx0, s0, cats
+        torch.cuda.empty_cache()
+
+    worst, timing = 0.0, {}
+    for G in SWEEP_LOCKSTEP:
+        st, X, hx, scores, cats = sweep_group(progs_noisy[:G])
+        for kind in sweeps.KINDS:
+            cat = cats[kind]
+            *_, got = sweeps.sweep_kernel(kind, st, X, hx, scores, *cat, want_move_scores=True)
+            want = sweeps.move_scores_plain(kind, st, hx, *cat)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            rel = float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+            worst = max(worst, err)
+            if rel > K1_RTOL:
+                raise AssertionError("sweep %s G=%d: move scores off plain by rel %g" % (kind, G, rel))
+            M = got.shape[-1]
+            del got, want
+            ops = sweeps.SweepOps(st, X, cats["moves"], cats["moves3"])
+            k = sweeps.KINDS.index(kind)
+            state = sweeps.new_state(1, DEVICE)
+            Xw, hxw, sw = X.clone(), hx.clone(), scores.clone()
+
+            def kern():
+                sweeps.launch_sweep(ops, k, Xw, hxw, sw, state)
+
+            def plain():
+                sweeps.PLAIN_SWEEPS[kind](st, X, hx, scores, *cat)
+
+            p_iters = (2 if G == 1 else 1) if kind == "moves3" else 5
+            plain_a = cuda_ms(plain, p_iters, 1 if G == 1 else 0)
+            kern_a = cuda_ms(kern, 10, 2)
+            kern_b = cuda_ms(kern, 10, 2)
+            plain_b = cuda_ms(plain, p_iters, 1 if G == 1 else 0)
+            kern_ms, plain_ms = (kern_a + kern_b) / 2, (plain_a + plain_b) / 2
+            bnd, by = sweep_bound(st, 32, kind, M)
+            timing[(kind, G)] = {"ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by, "moves": M}
+            log("sweeps time %s noise0.05 G=%d B=32 moves=%d rows=%d vp=%d (device, back to back): kernel %.4f ms "
+                "(%.4f, %.4f), plain %.4f ms (%.4f, %.4f), bound %.4f ms (%s), %.1fx the bound; move scores "
+                "within rel %.3g of plain (max_abs_err %r); library call: none computes this function"
+                % (kind, G, M, st.H.shape[-2], st.H.shape[-1], kern_ms, kern_a, kern_b, plain_ms, plain_a, plain_b,
+                   bnd, by, kern_ms / bnd, rel, err))
+            del ops, Xw, hxw, sw
+        del st, X, hx, scores, cats
+        torch.cuda.empty_cache()
+    head = timing[("moves3", 1)]
+    return {
+        "max_abs_err": worst,
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": None,
+        "by_kind": {"%s_G%d" % key: val for key, val in timing.items()},
+    }
+
+
+def sweep_launches() -> int:
+    from ambigram_tpu_torch.solver.sweeps import launch_sweep
+
+    return launch_sweep.launches
+
+
 def check_k1_cases(label: str, progs, exact: bool = False) -> float:
     """K1 with a case axis on a stacked group, at the search's
     population (B=32): hx bitwise equal to the plain per-case loop and
@@ -692,7 +851,7 @@ def run_batch(workdir: str, paths) -> dict:
         results = cli.run(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, int8_launches = score_rows.launches, score_rows.int8_launches
+    launches, int8_launches, sweeps = score_rows.launches, score_rows.int8_launches, sweep_launches()
     if not results or len(results) != len(paths):
         raise AssertionError("the manifest run returned %r" % (results,))
     lines = buf.getvalue().splitlines()
@@ -705,8 +864,8 @@ def run_batch(workdir: str, paths) -> dict:
                float(prog.hard_violation(x)), r.chromosomes[0].certified))
         if not r.path_strings or not all(p and p in lines for p in r.path_strings):
             raise AssertionError("no path printed for %s" % path)
-    log("batch: 4 cases, wall %.3f s, %.2f cases/min, K1 launches %d (int8 path %d)"
-        % (wall, 4 * 60.0 / wall, launches, int8_launches))
+    log("batch: 4 cases, wall %.3f s, %.2f cases/min, K1 launches %d (int8 path %d), sweep kernel launches %d"
+        % (wall, 4 * 60.0 / wall, launches, int8_launches, sweeps))
     log_phases(("solve.tensors", "solve.lp_bound", "score", "solve.lns", "solve.exact", "replay"))
     if max(violations) != 0.0:
         raise AssertionError("a batch solution violates hard rows: %r" % violations)
@@ -716,7 +875,9 @@ def run_batch(workdir: str, paths) -> dict:
     if launches < 2 or int8_launches != launches:
         raise AssertionError("batched K1 launched %d times (%d on its int8 path), expected >= 2, all int8"
                              % (launches, int8_launches))
-    return {"launches": launches, "int8_launches": int8_launches, "wall": wall}
+    if sweeps < 1:
+        raise AssertionError("the batch search never launched the sweep kernel")
+    return {"launches": launches, "int8_launches": int8_launches, "sweep_launches": sweeps, "wall": wall}
 
 
 def run_slice(lh: str, label: str = "slice", eps_bar: float = EPS_BAR, two_decimals: bool = False) -> dict:
@@ -745,7 +906,7 @@ def run_slice(lh: str, label: str = "slice", eps_bar: float = EPS_BAR, two_decim
         res = cli.run(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, int8_launches = score_rows.launches, score_rows.int8_launches
+    launches, int8_launches, sweeps = score_rows.launches, score_rows.int8_launches, sweep_launches()
     if res is None:
         raise AssertionError("the CLI rejected its arguments")
     text = buf.getvalue()
@@ -756,9 +917,9 @@ def run_slice(lh: str, label: str = "slice", eps_bar: float = EPS_BAR, two_decim
     eps = float(prog.residual_objective(x))
     vio = float(prog.hard_violation(x))
     calls = GLOBAL.counters.get("solve.device_calls", 0.0)
-    log("%s: V=%d rows=%d wall %.3f s, eps %r, hard_violation %r, certified %s, K1 launches %d (int8 path %d)"
-        % (label, prog.num_vars, prog.G.shape[0] + 2 * prog.n, wall, eps, vio, res.chromosomes[0].certified,
-           launches, int8_launches))
+    log("%s: V=%d rows=%d wall %.3f s, eps %r, hard_violation %r, certified %s, K1 launches %d (int8 path %d), "
+        "sweep kernel launches %d" % (label, prog.num_vars, prog.G.shape[0] + 2 * prog.n, wall, eps, vio,
+                                      res.chromosomes[0].certified, launches, int8_launches, sweeps))
     log("%s: path %s" % (label, path))
     log_phases(("solve.tensors", "solve.lp_bound", "score", "solve.lns", "solve", "replay"))
     score_s = GLOBAL.phases["score"].seconds if "score" in GLOBAL.phases else 0.0
@@ -769,11 +930,13 @@ def run_slice(lh: str, label: str = "slice", eps_bar: float = EPS_BAR, two_decim
     if launches < 2 or int8_launches != launches:
         raise AssertionError("K1 launched %d times in the %s (%d on its int8 path), expected >= 2, all int8"
                              % (launches, label, int8_launches))
+    if sweeps < 1:
+        raise AssertionError("the %s never launched the sweep kernel" % label)
     if vio != 0.0:
         raise AssertionError("solution violates hard rows: %r" % vio)
     if (round(eps, 2) > eps_bar) if two_decimals else (eps > eps_bar + 1e-4):
         raise AssertionError("%s: eps %r above the bar %r" % (label, eps, eps_bar))
-    return {"launches": launches, "int8_launches": int8_launches, "wall": wall}
+    return {"launches": launches, "int8_launches": int8_launches, "sweep_launches": sweeps, "wall": wall}
 
 
 def sc_sample(workdir: str, seed: int):
@@ -866,6 +1029,7 @@ def run_sc_slice(workdir: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, int8_launches, f32_launches = score_rows.launches, score_rows.int8_launches, score_rows.f32_launches
+        sweeps = sweep_launches()
     if res is None or len(solved) != 1:
         raise AssertionError("the CLI returned %r after %d solves" % (res, len(solved)))
     sol = solved[0][1]
@@ -876,9 +1040,9 @@ def run_sc_slice(workdir: str) -> dict:
              for k, case in enumerate(sc.cases)]
     calls = GLOBAL.counters.get("solve.device_calls", 0.0)
     log("sc slice: V=%d rows=%d coupling=%d wall %.3f s, status %s, eps %r, hard_violation %r, "
-        "K1 launches %d (int8 path %d, f32 path %d), multiplicity_diff per clone %r"
+        "K1 launches %d (int8 path %d, f32 path %d), sweep kernel launches %d, multiplicity_diff per clone %r"
         % (prog.num_vars, prog.G.shape[0] + 2 * prog.n + prog.num_coupling, prog.num_coupling, wall, sol.status,
-           eps, vio, launches, int8_launches, f32_launches, diffs))
+           eps, vio, launches, int8_launches, f32_launches, sweeps, diffs))
     log_phases(("solve.tensors", "solve.lp_bound", "score", "solve.lns", "solve", "replay"))
     for k, paths in enumerate(res.path_strings):
         if not paths or not all(p and p in lines for p in paths):
@@ -894,7 +1058,9 @@ def run_sc_slice(workdir: str) -> dict:
         raise AssertionError("sc eps %r above the bar %r" % (eps, SC_EPS_BAR))
     if any(diffs):
         raise AssertionError("a clone's path misses its simulated truth: %r" % diffs)
-    return {"launches": launches, "int8_launches": int8_launches, "wall": wall}
+    if sweeps < 1:
+        raise AssertionError("the sc slice never launched the sweep kernel")
+    return {"launches": launches, "int8_launches": int8_launches, "sweep_launches": sweeps, "wall": wall}
 
 
 def run_sc_manifest(workdir: str) -> dict:
@@ -925,7 +1091,7 @@ def run_sc_manifest(workdir: str) -> dict:
             results = cli.run(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, int8_launches = score_rows.launches, score_rows.int8_launches
+        launches, int8_launches, sweeps = score_rows.launches, score_rows.int8_launches, sweep_launches()
     if not results or len(results) != len(samples) or len(batches) != 1:
         raise AssertionError("the sc manifest run returned %r" % (results,))
     (flat, index), solutions = batches[0][0][:2], batches[0][1]
@@ -946,15 +1112,17 @@ def run_sc_manifest(workdir: str) -> dict:
             if not paths or not all(p and p in lines for p in paths):
                 raise AssertionError("sample %d clone %d printed no path" % (key[0], k))
     sizes = [len(args[0]) for args, _ in groups]
-    log("sc manifest: %d samples, wall %.3f s, case-stacked groups %r, K1 launches %d (int8 path %d)"
-        % (len(samples), wall, sizes, launches, int8_launches))
+    log("sc manifest: %d samples, wall %.3f s, case-stacked groups %r, K1 launches %d (int8 path %d), "
+        "sweep kernel launches %d" % (len(samples), wall, sizes, launches, int8_launches, sweeps))
     log_phases(("solve.tensors", "solve.lp_bound", "score", "solve.lns", "replay"))
     if sizes != [len(samples)] or GLOBAL.counters.get("solve.device_calls", 0.0) != 1:
         raise AssertionError("expected one case-stacked group of %d, got %r" % (len(samples), sizes))
     if launches < 1 or int8_launches != launches:
         raise AssertionError("batched K1 launched %d times (%d on its int8 path), expected >= 1, all int8"
                              % (launches, int8_launches))
-    return {"launches": launches, "int8_launches": int8_launches, "wall": wall}
+    if sweeps < 1:
+        raise AssertionError("the sc manifest's search never launched the sweep kernel")
+    return {"launches": launches, "int8_launches": int8_launches, "sweep_launches": sweeps, "wall": wall}
 
 
 def run_s64_slice(workdir: str) -> dict:
@@ -1023,17 +1191,19 @@ def run_golden_suite() -> dict:
         rc = golden_suite.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, int8_launches = score_rows.launches, score_rows.int8_launches
+    launches, int8_launches, sweeps = score_rows.launches, score_rows.int8_launches, sweep_launches()
     report = json.loads(buf.getvalue())
     for c in report["checks"]:
         log("golden suite %-16s ok %s %.3f s %s" % (c["name"], c["ok"], c["seconds"], c["detail"][-80:].replace("\n", " ")))
-    log("golden suite: %d checks, wall %.3f s, K1 launches %d (int8 path %d)"
-        % (len(report["checks"]), wall, launches, int8_launches))
+    log("golden suite: %d checks, wall %.3f s, K1 launches %d (int8 path %d), sweep kernel launches %d"
+        % (len(report["checks"]), wall, launches, int8_launches, sweeps))
     if rc != 0 or not report["ok"] or len(report["checks"]) != 16:
         raise AssertionError("the golden suite failed on the device search: rc %d" % rc)
     if launches < 1:
         raise AssertionError("the golden suite's device search never launched K1")
-    return {"launches": launches, "int8_launches": int8_launches, "wall": wall}
+    if sweeps < 1:
+        raise AssertionError("the golden suite's device search never launched the sweep kernel")
+    return {"launches": launches, "int8_launches": int8_launches, "sweep_launches": sweeps, "wall": wall}
 
 
 @contextlib.contextmanager
@@ -1268,7 +1438,7 @@ def run_mesh_batch(workdir: str, paths) -> dict:
         results = pipeline.run_bfb_many(paths, solver="device", device=DEVICE, mesh=mesh, out=buf)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, int8_launches = score_rows.launches, score_rows.int8_launches
+        launches, int8_launches, sweeps = score_rows.launches, score_rows.int8_launches, sweep_launches()
     lines = buf.getvalue().splitlines()
     violations = bench.case_violations(paths, results)
     for path, r in zip(paths, results):
@@ -1281,8 +1451,8 @@ def run_mesh_batch(workdir: str, paths) -> dict:
             raise AssertionError("no path printed for %s" % path)
     stacked_vars = sorted(p.num_vars for args, _ in stacked for _, p in args[0])
     single_vars = sorted(args[0].num_vars for args, _ in singles)
-    log("mesh batch: %d cases, wall %.3f s, stacked pass %r, round-robin searches %r, K1 launches %d (int8 path %d)"
-        % (len(paths), wall, stacked_vars, single_vars, launches, int8_launches))
+    log("mesh batch: %d cases, wall %.3f s, stacked pass %r, round-robin searches %r, K1 launches %d (int8 path %d), "
+        "sweep kernel launches %d" % (len(paths), wall, stacked_vars, single_vars, launches, int8_launches, sweeps))
     log_phases(("solve.tensors", "solve.lp_bound", "score", "solve.lns", "replay"))
     if max(violations) != 0.0:
         raise AssertionError("a mesh batch solution violates hard rows: %r" % violations)
@@ -1292,7 +1462,9 @@ def run_mesh_batch(workdir: str, paths) -> dict:
         raise AssertionError("expected the two S=48 programs searched round-robin, got %r" % single_vars)
     if launches < 1 or int8_launches != launches:
         raise AssertionError("K1 launched %d times (%d int8) under the mesh" % (launches, int8_launches))
-    return {"launches": launches, "int8_launches": int8_launches, "wall": wall}
+    if sweeps < 1:
+        raise AssertionError("the round-robin searches under the mesh never launched the sweep kernel")
+    return {"launches": launches, "int8_launches": int8_launches, "sweep_launches": sweeps, "wall": wall}
 
 
 def check_distinct_cards(workdir: str) -> None:
@@ -1401,19 +1573,22 @@ def run_s128_search(prog) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, int8_launches, f32_launches = score_rows.launches, score_rows.int8_launches, score_rows.f32_launches
+    sweeps = sweep_launches()
     x = np.asarray(res.x, dtype=np.float64)
     vio = float(prog.hard_violation(x))
-    log("s128 search: V=%d wall %.3f s, status %s, eps %r, hard_violation %r, K1 launches %d (f32 path %d, int8 path %d)"
-        % (prog.num_vars, wall, res.status, float(prog.residual_objective(x)), vio, launches, f32_launches,
-           int8_launches))
+    log("s128 search: V=%d wall %.3f s, status %s, eps %r, hard_violation %r, K1 launches %d (f32 path %d, "
+        "int8 path %d), sweep kernel launches %d" % (prog.num_vars, wall, res.status, float(prog.residual_objective(x)),
+                                                     vio, launches, f32_launches, int8_launches, sweeps))
     log_phases(("solve.tensors", "solve.lp_bound", "score"))
     if f32_launches < 2 or int8_launches != 0 or f32_launches != launches:
         raise AssertionError("K1 launched %d times in the S=128 search (%d f32, %d int8), expected >= 2, all f32"
                              % (launches, f32_launches, int8_launches))
     if x.shape != (prog.num_vars,) or not np.array_equal(x, np.round(x)) or (x < 0).any() or (x > prog.x_ub).any():
         raise AssertionError("the S=128 search returned an x that is not integral inside [0, x_ub]")
-    return {"launches": launches, "int8_launches": int8_launches, "f32_launches": f32_launches, "wall": wall,
-            "hard_violation": vio}
+    if sweeps < 1:
+        raise AssertionError("the S=128 search never launched the sweep kernel")
+    return {"launches": launches, "int8_launches": int8_launches, "f32_launches": f32_launches,
+            "sweep_launches": sweeps, "wall": wall, "hard_violation": vio}
 
 
 def check_s128(workdir: str) -> tuple:
@@ -1458,31 +1633,34 @@ def ptxas_spills(report: str) -> dict:
 
 def build_kernels() -> None:
     """Build every kernel of the port at once (one nvcc per source); K1's
-    f32 kernels must not spill."""
+    f32 kernels and the sweep kernels must not spill."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ambigram_tpu_torch import kernels
     from ambigram_tpu_torch.solver.score import _k1_library, _k2_library
+    from ambigram_tpu_torch.solver.sweeps import _library as _sweeps_library
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for fut in [pool.submit(_k1_library), pool.submit(_k2_library)]:
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        for fut in [pool.submit(_k1_library), pool.submit(_k2_library), pool.submit(_sweeps_library)]:
             fut.result()
-    log("build: %.2f s for both kernels" % (time.perf_counter() - t0))
-    for name, wanted in (("score_rows", ("IMMA",)), ("chained_score", ("IGMMA", "HGMMA"))):
+    log("build: %.2f s for the three kernels" % (time.perf_counter() - t0))
+    for name, wanted in (("score_rows", ("IMMA",)), ("chained_score", ("IGMMA", "HGMMA")), ("sweeps", ())):
         info = kernels.BUILD_INFO[name]
         log("build: %s %.2f s in nvcc" % (name, info["seconds"]))
         if info["log"]:
             log(info["log"])
-        if name == "score_rows":
-            f32 = {fn: v for fn, v in ptxas_spills(info["log"]).items() if "score_rows_f32" in fn}
-            if not f32 or any(v != (0, 0) for v in f32.values()):
-                raise AssertionError("K1's f32 kernels spill or are missing from ptxas's report: %r" % f32)
-            log("ptxas: K1's %d f32 kernels spill nothing" % len(f32))
-        counts = sass_counts(info["path"])
-        log("sass: %s tensor-core instructions %s" % (name, json.dumps(counts, sort_keys=True)))
-        if not any(counts.get(op) for op in wanted):
-            raise AssertionError("no %s in the SASS of %s" % (" or ".join(wanted), name))
+        if name in ("score_rows", "sweeps"):
+            tag = "score_rows_f32" if name == "score_rows" else "sweep_"
+            found = {fn: v for fn, v in ptxas_spills(info["log"]).items() if tag in fn}
+            if not found or any(v != (0, 0) for v in found.values()):
+                raise AssertionError("%s's kernels spill or are missing from ptxas's report: %r" % (name, found))
+            log("ptxas: %s's %d %s kernels spill nothing" % (name, len(found), tag.rstrip("_")))
+        if wanted:
+            counts = sass_counts(info["path"])
+            log("sass: %s tensor-core instructions %s" % (name, json.dumps(counts, sort_keys=True)))
+            if not any(counts.get(op) for op in wanted):
+                raise AssertionError("no %s in the SASS of %s" % (" or ".join(wanted), name))
 
 
 def main() -> int:
@@ -1504,7 +1682,9 @@ def main() -> int:
         lh = simulate_case(workdir, noise=0.05)
         lh_exact = simulate_case(workdir, noise=0.0)
         prog = extract_programs(lh)[0]
-        k1 = check_k1({"noise0.05": prog, "noise0": extract_programs(lh_exact)[0]})
+        prog_exact = extract_programs(lh_exact)[0]
+        k1 = check_k1({"noise0.05": prog, "noise0": prog_exact})
+        sweeps = check_sweeps(*sweep_programs(workdir, prog_exact, prog))
         sl = run_slice(lh)
         k2 = check_k2()
         from ambigram_tpu_torch.scripts.simulate import simulate_bfb_case, write_case
@@ -1539,6 +1719,21 @@ def main() -> int:
 
     kernels_line = {
         "kernels": [
+            {
+                "name": "sweeps",
+                "route": "cuda",
+                "source": "ambigram_tpu_torch/csrc/sweeps.cu",
+                "replaces": "ambigram_tpu/solver/search.py:97-305",
+                "launches": sum(r.get("sweep_launches", 0) for r in main_paths),
+                "max_abs_err": sweeps["max_abs_err"],
+                "ms": sweeps["ms"],
+                "plain_ms": sweeps["plain_ms"],
+                "bound_ms": sweeps["bound_ms"],
+                "bound_by": sweeps["bound_by"],
+                "library_ms": sweeps["library_ms"],
+                "shape": "triple sweep, S=48 seed 0, G=1, B=32",
+                "by_kind": sweeps["by_kind"],
+            },
             {
                 "name": "score_rows",
                 "route": "cuda",

@@ -391,6 +391,7 @@ def test_bench_batch_leg_on_card(cuda_device):
     for another random stream). The port measured 900.75 on an NVIDIA
     H100 80GB HBM3 at 700 W."""
     out = bench.bench_batch()
+    print("batch_throughput %s" % json.dumps(out))
     leg = out["batch_device"]
     assert leg["solved"] == 16
     assert leg["max_hard_violation"] == 0.0
@@ -592,3 +593,237 @@ def test_bench_mesh_legs(cuda_device):
         if key in out:
             assert out[key]["solved"] == 16 and out[key]["max_hard_violation"] == 0.0
     assert set(out["round_robin_4xS48"]) == {"threads1", "threads2", "threads4"}
+
+
+# ------------------------------------------------- the sweep kernel (csrc/sweeps.cu)
+
+TIE_VARS = dict(minus=10, plus=20, far=150, spare=30, empty=31)
+
+
+def tie_case():
+    """A program built so that moves tie (numpy; Rows = Vp = 256, two
+    chunks of variables). Row 0 has target 1; variable 10 has column -1
+    there, variables 20 and 150 (the second chunk) +1, variables 30 and 31
+    zero columns; every other row is open. Member 0 (x10 = x30 = 1, score
+    2) reaches score 1 by +x20, -x10 or +x150 in the delta sweep, so + and
+    - tie within a chunk and across chunks; member 1 (x30 = 1, score 1)
+    reaches 0 by +x20 or +x150. The paired catalogue moves a unit from 30
+    to 150 (move 40), to 20 (90) and to 20 again (200, the second chunk);
+    the triple catalogue splits 30 into (150, 31) (move 140) and (20, 31)
+    (move 300), the rest padding. Returns (leaves, X, moves, moves3)."""
+    rows = vp = 256
+    v = TIE_VARS
+    H = np.zeros((rows, vp), dtype=np.float32)
+    H[0, v["minus"]], H[0, v["plus"]], H[0, v["far"]] = -1.0, 1.0, 1.0
+    lb = np.full(rows, -3.0e38, dtype=np.float32)
+    ub = np.full(rows, 3.0e38, dtype=np.float32)
+    lb[0] = ub[0] = 1.0
+    leaves = dict(H=H, lb=lb, ub=ub, x_ub=np.full(vp, 3.0, dtype=np.float32), H8=H.astype(np.int8),
+                  lb_raw=lb.copy(), ub_raw=ub.copy(), w=np.ones(rows, dtype=np.float32))
+    X = np.zeros((2, vp), dtype=np.float32)
+    X[0, v["minus"]] = X[0, v["spare"]] = X[1, v["spare"]] = 1.0
+    mm, mp = np.zeros(256, dtype=np.int32), np.zeros(256, dtype=np.int32)
+    for m, to in ((40, v["far"]), (90, v["plus"]), (200, v["plus"])):
+        mm[m], mp[m] = v["spare"], to
+    a, b, c = (np.zeros(512, dtype=np.int32) for _ in range(3))
+    s, valid = np.ones(512, dtype=np.float32), np.zeros(512, dtype=bool)
+    for m, to in ((140, v["far"]), (300, v["plus"])):
+        a[m], b[m], c[m], valid[m] = v["spare"], to, v["empty"], True
+    return leaves, X, (mm, mp), (a, b, c, s, valid)
+
+
+def tie_tensors(device):
+    """The tie case's ScoringTensors, X, hx, scores and catalogues on `device`."""
+    leaves, X, moves, moves3 = tie_case()
+    st = ScoringTensors.from_numpy(num_vars=256, num_residual_rows=1, int8_ok=True, x_ub_max=3.0, device=device,
+                                   **leaves)
+    X = torch.as_tensor(X).to(device)
+    scores, hx = score_rows_plain(st, X, want_hx=True)
+
+    def index(a):
+        t = torch.as_tensor(a)
+        return (t.to(torch.int64) if t.dtype == torch.int32 else t).to(device)
+
+    return st, X, hx, scores, tuple(index(a) for a in moves), tuple(index(a) for a in moves3)
+
+
+def kicked_population(prog, x_ub, n, seed):
+    """n candidates shaped like the search's: the seeded population, each
+    member but the first kicked at 4 variables by +-1/+-2, clipped."""
+    from ambigram_tpu_torch.solver.host import _seed_case
+
+    X, _ = _seed_case(prog, len(x_ub), x_ub, n, seed)
+    rng = np.random.default_rng(seed)
+    for b in range(1, n):
+        np.add.at(X[b], rng.integers(0, prog.num_vars, size=4), rng.choice([-2.0, -1.0, 1.0, 2.0], size=4))
+    return np.clip(X, 0.0, x_ub).astype(np.float32)
+
+
+def stacked_start(progs, device, B=32):
+    """stack_cases of `progs` on `device` with a kicked population per
+    case, and its exact hx and scores (plain, integer targets)."""
+    st = stack_cases(progs, device)
+    x_ub = st.x_ub.cpu().numpy()
+    X = np.stack([kicked_population(p, x_ub[g], B, seed=g) for g, p in enumerate(progs)])
+    X = torch.as_tensor(X).to(device)
+    scores, hx = score_rows_plain(st, X, want_hx=True)
+    return st, X, hx, scores
+
+
+SWEEP_CATALOGUE = {"delta": lambda moves, moves3: (), "moves": lambda moves, moves3: moves,
+                   "moves3": lambda moves, moves3: moves3}
+
+
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("kind", ["delta", "moves", "moves3"])
+def test_sweep_kernel_lockstep_with_plain(cuda_device, tmp_path, kind, G):
+    """Each sweep kind through the kernel against its plain version on G
+    case-stacked integer-target programs (S=24, noise 0, one interval),
+    eight sweeps in lockstep: X', hx', scores' and the per-case improved
+    flags bitwise equal after every one."""
+    from ambigram_tpu_torch.solver import sweeps
+
+    progs = [simulated_prog(tmp_path, seed=s, n_segments=24, mode="nested") for s in range(G)]
+    st, X, hx, scores = stacked_start(progs, cuda_device)
+    cat = SWEEP_CATALOGUE[kind](*search._device_moves(progs[0], cuda_device))
+    plain = sweeps.PLAIN_SWEEPS[kind]
+    before = sweeps.launch_sweep.by_kind[sweeps.KINDS.index(kind)]
+    n_improved = 0
+    for step in range(8):
+        want = plain(st, X, hx, scores, *cat)
+        got = sweeps.sweep_kernel(kind, st, X, hx, scores, *cat)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("X", "hx", "scores", "improved"), got, want):
+            assert torch.equal(a, b), "%s G=%d step %d: %s differs" % (kind, G, step, name)
+        n_improved += int(want[3].sum())
+        X, hx, scores = want[:3]
+    assert n_improved >= 1
+    assert sweeps.launch_sweep.by_kind[sweeps.KINDS.index(kind)] == before + 8
+
+
+def test_sweep_kernel_move_scores_on_the_noisy_s48_case(cuda_device, tmp_path):
+    """On the noisy S=48 seed-0 case (fractional targets: the f32 hinges
+    round, and the kernel sums the rows in another order than the plain
+    version) every move's hinge sum of each sweep kind within rtol 1e-5
+    of the plain one, at the search's population (B=32)."""
+    from ambigram_tpu_torch.solver import sweeps
+
+    prog = simulated_prog(tmp_path, 0, 48, rounds=5, coverage=30.0, mode="process", noise=0.05)
+    st, X, hx, scores = stacked_start([prog], cuda_device)
+    moves, moves3 = search._device_moves(prog, cuda_device)
+    for kind in sweeps.KINDS:
+        cat = SWEEP_CATALOGUE[kind](moves, moves3)
+        *_, got = sweeps.sweep_kernel(kind, st, X, hx, scores, *cat, want_move_scores=True)
+        want = sweeps.move_scores_plain(kind, st, hx, *cat)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape
+        rel = float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+        assert rel <= 1e-5, "%s: rel %g" % (kind, rel)
+
+
+@pytest.mark.parametrize("kind", ["delta", "moves", "moves3"])
+def test_sweep_kernel_tie_order(cuda_device, kind):
+    """The tie case (`tie_case`): the kernel picks the plain version's
+    (JAX's) move: + before - within a delta chunk, the earlier chunk
+    across chunks, the first of equal moves within a chunk."""
+    from ambigram_tpu_torch.solver import sweeps
+
+    st, X, hx, scores, moves, moves3 = tie_tensors(cuda_device)
+    cat = SWEEP_CATALOGUE[kind](moves, moves3)
+    plain = sweeps.PLAIN_SWEEPS[kind]
+    want = plain(st, X, hx, scores, *cat)
+    got = sweeps.sweep_kernel(kind, st, X, hx, scores, *cat)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    v = TIE_VARS
+    moved = {"delta": {v["plus"]: 1.0}, "moves": {v["far"]: 1.0, v["spare"]: 0.0},
+             "moves3": {v["far"]: 1.0, v["spare"]: 0.0, v["empty"]: 1.0}}[kind]
+    for var, value in moved.items():
+        assert float(got[0][0, var]) == value, (kind, var)
+
+
+def test_gated_off_sweep_changes_nothing(cuda_device, tmp_path):
+    """A launch whose gate is off (the loop's budget is spent) leaves X,
+    hx and scores as they were and reports no improvement; the next
+    gated-on sweep still equals the plain one (the members' keys were
+    left clean)."""
+    from ambigram_tpu_torch.solver import sweeps
+
+    prog = simulated_prog(tmp_path, seed=1, n_segments=24, mode="nested")
+    st, X, hx, scores = stacked_start([prog], cuda_device)
+    moves, moves3 = search._device_moves(prog, cuda_device)
+    for kind in sweeps.KINDS:
+        cat = SWEEP_CATALOGUE[kind](moves, moves3)
+        ops = sweeps.SweepOps(st, X, moves, moves3)
+        X2, hx2, s2 = X.clone(), hx.clone(), scores.clone()
+        spent = sweeps.new_state(0, cuda_device)
+        sweeps.launch_sweep(ops, sweeps.KINDS.index(kind), X2, hx2, s2, spent)
+        torch.cuda.synchronize()
+        assert torch.equal(X2, X) and torch.equal(hx2, hx) and torch.equal(s2, scores)
+        assert not bool(ops.imp.any()) and bool((ops.best == -1).all())
+        sweeps.launch_sweep(ops, sweeps.KINDS.index(kind), X2, hx2, s2, sweeps.new_state(1, cuda_device))
+        want = sweeps.PLAIN_SWEEPS[kind](st, X, hx, scores, *cat)
+        assert torch.equal(X2, want[0]) and torch.equal(hx2, want[1]) and torch.equal(s2, want[2])
+
+
+def test_descend_block_makes_no_host_sync(cuda_device, tmp_path):
+    """A block of descent iterations on the card queues its sweeps and
+    state folds without one host sync (torch's sync debug mode raises on
+    any), and lands where the CPU descent of the same budget lands:
+    X, hx, scores and the sweep counts bitwise (integer targets)."""
+    from ambigram_tpu_torch.solver import sweeps
+
+    progs = [simulated_prog(tmp_path, seed=s, n_segments=24, mode="nested") for s in (3, 4)]
+    st, X, hx, scores = stacked_start(progs, cuda_device)
+    moves, moves3 = search._device_moves(progs[0], cuda_device)
+    n = search.DESCEND_BLOCK
+    ops = sweeps.SweepOps(st, X, moves, moves3)
+    state = sweeps.new_state(n, cuda_device)
+    Xk, hxk, sk = X.clone(), hx.clone(), scores.clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        Xk, hxk, sk = search.descend_block(ops, Xk, hxk, sk, state, n)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    st_cpu = stack_cases(progs, "cpu")
+    cpu_moves, cpu_moves3 = search._device_moves(progs[0], torch.device("cpu"))
+    want = search.descend_loop(st_cpu, X.cpu(), hx.cpu(), scores.cpu(), n, 128, cpu_moves, cpu_moves3)
+    words = state.tolist()
+    assert (words[sweeps.S_IT], words[sweeps.S_N_MV], words[sweeps.S_N_M3]) == tuple(want[3:])
+    for a, b in zip((Xk, hxk, sk), want[:3]):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("block", [1, 8, 64])
+def test_descend_loop_on_card_matches_cpu(cuda_device, tmp_path, monkeypatch, block):
+    """The whole gated descent of a case-stacked pair on the card, at
+    three block sizes, against the CPU descent with the plain sweeps:
+    X, hx, scores and the three sweep counts bitwise."""
+    progs = [simulated_prog(tmp_path, seed=s, n_segments=24, mode="nested") for s in (5, 6)]
+    st, X, hx, scores = stacked_start(progs, cuda_device)
+    moves, moves3 = search._device_moves(progs[0], cuda_device)
+    monkeypatch.setattr(search, "DESCEND_BLOCK", block)
+    got = search.descend_loop(st, X, hx, scores, 64, 128, moves, moves3)
+    cpu_moves, cpu_moves3 = search._device_moves(progs[0], torch.device("cpu"))
+    want = search.descend_loop(stack_cases(progs, "cpu"), X.cpu(), hx.cpu(), scores.cpu(), 64, 128,
+                               cpu_moves, cpu_moves3)
+    assert tuple(got[3:]) == tuple(want[3:]) and want[5] >= 1
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_windowed_batch_equals_serial_on_card(cuda_device, tmp_path, monkeypatch):
+    """`solve_device_batch` with JAX's window of 4 groups in flight, each
+    on its own stream, against a window of 1: per case the same x and
+    eps (no polish: its wall-clock budget would decide). Six groups, so
+    the window fills and drains."""
+    progs = [simulated_prog(tmp_path, seed=s, n_segments=n, mode="nested")
+             for s, n in ((0, 8), (1, 10), (2, 12), (3, 12), (4, 14), (5, 16), (6, 18))]
+    kw = dict(pop=8, rounds=2, max_sweeps=32, polish=False, device=cuda_device)
+    windowed = search.solve_device_batch(progs, **kw)
+    monkeypatch.setattr(search, "MAX_INFLIGHT", 1)
+    serial = search.solve_device_batch(progs, **kw)
+    for a, b in zip(windowed, serial):
+        assert np.array_equal(a.x, b.x) and a.epsilon_sum == b.epsilon_sum
