@@ -79,9 +79,12 @@ class ScoringTensors:
     num_residual_rows: int
     int8_ok: bool
     x_ub_max: float
-    # H.T made contiguous, built on first use by `columns()`: the sweeps
-    # gather columns of H, which are rows of HT
+    # H.T made contiguous, built on first use by `columns()`: the plain
+    # sweeps gather columns of H, which are rows of HT
     _HT: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
+    # the sparse columns of H that the sweep kernel reads, built on first
+    # use by `solver.sweeps.sparse_columns`
+    _sparse: Optional[object] = dataclasses.field(default=None, repr=False)
     # max |H8|, read on first use by `int8_hx_exact()`
     _h8_absmax: Optional[int] = dataclasses.field(default=None, repr=False)
 
@@ -113,12 +116,12 @@ class ScoringTensors:
 
     def to(self, device) -> "ScoringTensors":
         moved = {name: getattr(self, name).to(device) for name in _LEAVES}
-        return dataclasses.replace(self, _HT=None, **moved)
+        return dataclasses.replace(self, _HT=None, _sparse=None, **moved)
 
     def case(self, g: int) -> "ScoringTensors":
         """Case g of a case-stacked set (`parallel.mesh.stack_cases`:
         every leaf has a leading case axis) as a single-case set."""
-        return dataclasses.replace(self, _HT=None, **{name: getattr(self, name)[g] for name in _LEAVES})
+        return dataclasses.replace(self, _HT=None, _sparse=None, **{name: getattr(self, name)[g] for name in _LEAVES})
 
     @classmethod
     def from_numpy(

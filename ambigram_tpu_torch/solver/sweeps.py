@@ -33,16 +33,23 @@ chunk's temporary grows to [G, B, chunk, Rows]: at S=48 and G=8 that is
 
 These plain sweeps serve CPU tensors, the tests and the comparisons on
 the card. On a card the search runs the hand-written kernel
-csrc/sweeps.cu instead (`SweepOps`, `sweep_kernel`): it scores a whole
-sweep without the temporary, and its launches read their tier gates
-from state words on the device (`new_state`), so the host can queue a
-block of descent iterations and read one flag per block.
+csrc/sweeps.cu instead (`SweepOps`, `sweep_kernel`): it reads the
+sparse columns of H (`sparse_columns`), visits for each move only the
+rows its columns touch, keeps no temporary, and its launches read their
+tier gates from state words on the device (`new_state`), so the host
+can queue a block of descent iterations and read one flag per block.
+It applies a move when best < base - 1e-6, base being the member's dense
+hinge sum that the move's score was formed from, where JAX compares
+with the score: the same number on integer targets, and on noisy ones
+a move that changes no hinge never passes. `move_scores_sparse_plain`
+mirrors its formulation on the CPU for the checks.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+from dataclasses import dataclass, field
 from typing import List, Optional
 
 import torch
@@ -300,8 +307,8 @@ def settle_state(words: List[int], kind: int, case_improved: List[bool], last: b
 
 
 _SWEEPS_ARGTYPES = (
-    [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-    + [ctypes.c_void_p] * 5
+    [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+    + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
 )
 
 
@@ -312,11 +319,126 @@ def _library() -> ctypes.CDLL:
     if lib.sweeps_launch.argtypes is None:
         lib.sweeps_launch.argtypes = _SWEEPS_ARGTYPES
         lib.sweeps_launch.restype = ctypes.c_int
+        lib.sweeps_base_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.sweeps_base_launch.restype = ctypes.c_int
         lib.sweeps_state_launch.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
         lib.sweeps_state_launch.restype = ctypes.c_int
         lib.sweeps_error_string.argtypes = [ctypes.c_int]
         lib.sweeps_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError("%s failed: %s (cudaError %d)" % (what, lib.sweeps_error_string(err).decode(), err))
+
+
+# ------------------------------------------------- the sparse columns of H
+
+END = 2**31 - 1  # the row of a column's sentinel entry (the kernel's kEnd)
+
+
+@dataclass
+class SparseColumns:
+    """The columns of H of one program or case-stacked group, in the
+    layout of the sweep kernel: column v of case g is the entries
+    ent[g, ptr[g, v] : ptr[g, v + 1] - 1], (row, value bits) pairs sorted
+    by row, then one sentinel entry (row END, value 0). The values are
+    the f32 entries of `st.H`. `bnd` holds the (lb, ub) pair of every
+    row. A case-stacked group pads every case to the largest case's
+    entries, and a padding column is empty. `catalogues` caches the move
+    catalogues' device copies (`_catalogue`)."""
+
+    ptr: torch.Tensor  # int32 [G, Vp + 1]
+    ent: torch.Tensor  # int32 [G, E, 2]
+    bnd: torch.Tensor  # float32 [G, Rows, 2]
+    max_count: int  # the most entries in one column
+    nnz: int  # entries in all columns, sentinels not counted
+    catalogues: dict = field(default_factory=dict, repr=False)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (self.ptr, self.ent, self.bnd))
+
+    def dense(self):
+        """(H.T [G, Vp, Rows] f32, its support [G, Vp, Rows] bool) rebuilt
+        from the entries, for checks and the plain mirror."""
+        G, Vp1 = self.ptr.shape
+        rows = self.bnd.shape[1]
+        idx = torch.arange(self.ent.shape[1], device=self.ent.device)
+        col = torch.searchsorted(self.ptr.to(torch.int64), idx.expand(G, -1).contiguous(), right=True) - 1
+        real = self.ent[..., 0] != END
+        g = torch.arange(G, device=self.ent.device)[:, None].expand_as(real)[real]
+        r = self.ent[..., 0][real].to(torch.int64)
+        HT = torch.zeros((G, Vp1 - 1, rows), dtype=torch.float32, device=self.ent.device)
+        HT[g, col[real], r] = self.ent[..., 1].contiguous().view(torch.float32)[real]
+        support = torch.zeros(HT.shape, dtype=torch.bool, device=HT.device)
+        support[g, col[real], r] = True
+        return HT, support
+
+
+def sparse_columns(st: ScoringTensors) -> SparseColumns:
+    """The sparse columns of `st` (one case, or a case-stacked group),
+    built with torch ops on its device once and cached on it. Raises if a
+    row has lb > ub: the kernel's hinge max(max(v - ub, lb - v), 0)
+    equals max(v - ub, 0) + max(lb - v, 0) only while lb <= ub."""
+    if st._sparse is not None:
+        return st._sparse
+    H = st.H if st.H.dim() == 3 else st.H[None]
+    lb = st.lb if st.lb.dim() == 2 else st.lb[None]
+    ub = st.ub if st.ub.dim() == 2 else st.ub[None]
+    if not bool((lb <= ub).all()):
+        raise ValueError("a row has lb > ub: the sweep kernel's one-max hinge needs lb <= ub on every row")
+    G, rows, Vp = H.shape
+    dev = H.device
+    nz = torch.nonzero(H)  # (g, r, v), sorted so: r ascends within each column
+    g, r, v = nz.unbind(1)
+    vals = H[g, r, v]
+    col = g * Vp + v
+    col, order = torch.sort(col, stable=True)
+    g, r, v, vals = g[order], r[order], v[order], vals[order]
+    counts = torch.bincount(col, minlength=G * Vp)
+    ptr = torch.zeros((G, Vp + 1), dtype=torch.int64, device=dev)
+    ptr[:, 1:] = torch.cumsum(counts.view(G, Vp) + 1, dim=1)  # + 1: the sentinel
+    E = int(ptr[:, -1].max())
+    first = torch.cumsum(counts, 0) - counts  # each column's first nonzero in sorted order
+    slot = ptr[g, v] + torch.arange(col.numel(), device=dev) - first[col]
+    ent = torch.zeros((G, E, 2), dtype=torch.int32, device=dev)
+    ent[..., 0] = END
+    ent[g, slot, 0] = r.to(torch.int32)
+    ent[g, slot, 1] = vals.contiguous().view(torch.int32)
+    bnd = torch.stack([lb, ub], dim=-1).contiguous()
+    st._sparse = SparseColumns(
+        ptr=ptr.to(torch.int32).contiguous(), ent=ent, bnd=bnd, max_count=int(counts.max()) if counts.numel() else 0,
+        nnz=int(col.numel()))
+    return st._sparse
+
+
+def _catalogue(sp: SparseColumns, kind: int, catalogue, chunk: int, dev: torch.device):
+    """The kernel's operands of a catalogue, (a, b, c, s, valid, M) on
+    `dev`, uploaded once per catalogue and cached with the sparse columns
+    (the cache holds the catalogue's tensors, so their ids stay theirs)."""
+    key = (kind, chunk, str(dev)) + tuple(id(t) for t in catalogue)
+    hit = sp.catalogues.get(key)
+    if hit is not None:
+        return hit[1]
+    if kind == 0:
+        Vp = sp.ptr.shape[1] - 1
+        ops = (None, None, None, None, None, 2 * Vp)
+    elif kind == 1:
+        mm, mp = (t.to(device=dev, dtype=torch.int32).contiguous() for t in catalogue)
+        ops = (mm, mp, None, None, None, (mm.shape[0] // chunk) * chunk)
+    else:
+        a, b, c, s, valid = catalogue
+        i32 = [t.to(device=dev, dtype=torch.int32).contiguous() for t in (a, b, c)]
+        s = s.to(device=dev, dtype=torch.float32).contiguous()
+        valid = valid.to(device=dev, dtype=torch.uint8).contiguous()
+        ops = (*i32, s, valid, (a.shape[0] // chunk) * chunk)
+    sp.catalogues[key] = (tuple(catalogue), ops)
+    return ops
+
+
+# ------------------------------------------- the sweep kernel (csrc/sweeps.cu)
 
 
 class SweepOps:
@@ -327,7 +449,9 @@ class SweepOps:
     On CUDA tensors `sweep` launches the kernel of csrc/sweeps.cu
     (`launch_sweep`) in place on X, hx and scores, and `settle` folds the
     members' flags into the state with `sweep_state_kernel`: neither reads
-    the card, so a block of iterations makes no host sync. On CPU tensors
+    the card, so a block of iterations makes no host sync. The kernel
+    reads the sparse columns of `st` (`sparse_columns`, built on the
+    first descent of a program) and never the dense H.T. On CPU tensors
     `sweep` reads the gate on the host and runs the plain sweep, and
     `settle` updates the words with `settle_state`. The catalogues are
     shared by the group; `tiers` lists the kinds this descent runs."""
@@ -338,33 +462,41 @@ class SweepOps:
         self.tiers = [k for k in (0, 1, 2) if self.cats[k] is not None]
         self.cuda = X.device.type == "cuda"
         self.G = 1 if X.dim() == 2 else X.shape[0]
-        self.B, Vp = X.shape[-2:]
+        self.B, self.vp = X.shape[-2:]
         self._case_improved: List[bool] = []
         if not self.cuda:
             return
-        lead = (1,) if X.dim() == 2 else ()
-
-        def cased(t: torch.Tensor) -> torch.Tensor:
-            return t.reshape(lead + tuple(t.shape)).contiguous()
-
-        self.HT = cased(st.columns())
-        self.lb, self.ub, self.x_ub = cased(st.lb), cased(st.ub), cased(st.x_ub)
-        if Vp % chunk:
-            raise ValueError("Vp %d is not a multiple of the chunk %d" % (Vp, chunk))
+        if self.vp % chunk:
+            raise ValueError("Vp %d is not a multiple of the chunk %d" % (self.vp, chunk))
         dev = X.device
-        self.operands = {0: (None, None, None, None, None, 2 * Vp)}
-        if moves is not None:
-            mm, mp = (t.to(device=dev, dtype=torch.int32).contiguous() for t in moves)
-            self.operands[1] = (mm, mp, None, None, None, (mm.shape[0] // chunk) * chunk)
-        if moves3 is not None:
-            a, b, c, s, valid = moves3
-            i32 = [t.to(device=dev, dtype=torch.int32).contiguous() for t in (a, b, c)]
-            s = s.to(device=dev, dtype=torch.float32).contiguous()
-            valid = valid.to(device=dev, dtype=torch.uint8).contiguous()
-            self.operands[2] = (*i32, s, valid, (a.shape[0] // chunk) * chunk)
-        # one key per member (all ones between sweeps) and its improved flag
+        self.sp = sparse_columns(st)
+        self.rows = self.sp.bnd.shape[1]
+        self.x_ub = st.x_ub.reshape(self.G, self.vp).contiguous()
+        self.operands = {k: _catalogue(self.sp, k, self.cats[k], chunk, dev) for k in self.tiers}
+        # one key per member (all ones between sweeps), its improved flag
         self.best = torch.full((self.G, self.B), -1, dtype=torch.int64, device=dev)
         self.imp = torch.zeros((self.G, self.B), dtype=torch.int32, device=dev)
+        # hx member-major [G, Rows, B] and the members' dense hinge sums
+        # [G, B], made from the hx of the first launch (`_bind`) and kept in
+        # step by the kernel
+        self.hxT = self.base = None
+        self._hx, self._hx_version = None, -1
+
+    def _bind(self, hx: torch.Tensor, lib: ctypes.CDLL) -> None:
+        """Make hxT and base from `hx` unless they were made from this
+        tensor as it is: the kernel keeps them in step with its own
+        writes, which torch does not see, and any torch write to hx bumps
+        its version. hxT is always a copy (at B = 1 the transpose is
+        already contiguous)."""
+        if hx is self._hx and hx._version == self._hx_version:
+            return
+        self.hxT = torch.empty((self.G, self.rows, self.B), dtype=torch.float32, device=hx.device)
+        self.hxT.copy_(hx.reshape(self.G, self.B, self.rows).transpose(1, 2))
+        self.base = torch.empty((self.G, self.B), dtype=torch.float32, device=hx.device)
+        err = lib.sweeps_base_launch(hx.data_ptr(), self.sp.bnd.data_ptr(), self.base.data_ptr(), self.G, self.B,
+                                     self.rows, torch.cuda.current_stream(hx.device).cuda_stream)
+        _check(lib, err, "sweeps base kernel launch")
+        self._hx, self._hx_version = hx, hx._version
 
     def sweep(self, kind: int, X, hx, scores, state: torch.Tensor):
         """One gated sweep of `kind`; returns (X, hx, scores)."""
@@ -388,9 +520,7 @@ class SweepOps:
                     kind, int(last), self.G, self.B, self.imp.data_ptr(), state.data_ptr(),
                     torch.cuda.current_stream(state.device).cuda_stream,
                 )
-            if err != 0:
-                raise RuntimeError("sweeps state kernel launch failed: %s (cudaError %d)"
-                                   % (lib.sweeps_error_string(err).decode(), err))
+            _check(lib, err, "sweeps state kernel launch")
             return
         words = state.tolist()
         settle_state(words, kind, self._case_improved, last)
@@ -405,63 +535,68 @@ def _on_device(dev: torch.device):
 
 
 def launch_sweep(
-    ops: SweepOps, kind: int, X, hx, scores, state: torch.Tensor, move_scores: Optional[torch.Tensor] = None
+    ops: SweepOps,
+    kind: int,
+    X,
+    hx,
+    scores,
+    state: torch.Tensor,
+    move_scores: Optional[torch.Tensor] = None,
+    visits: Optional[torch.Tensor] = None,
 ) -> None:
     """Launch one sweep of `kind` (0 delta, 1 paired, 2 triple) of the
     kernel csrc/sweeps.cu, in place on X [G, B, Vp], hx [G, B, Rows] and
     scores [G, B] (or the same without G for one case), gated by the
-    state words; `ops.imp` receives the members' improved flags, and
-    `move_scores` ([G, B, M] f32, for checks), when given, every move's
-    hinge sum in the order of `move_scores_plain`. CUDA tensors only;
-    raises on any fault. `launch_sweep.launches` counts the
-    launches, `launch_sweep.by_kind` each kind's (gated-off ones too: the
-    host does not know the gate)."""
+    state words; `ops.imp` receives the members' improved flags. For
+    checks, `move_scores` ([G, B, M] f32), when given, receives every
+    move's score in the order of `move_scores_plain`, and `visits` ([G, M]
+    int32) every move's |U_m|, the rows it visits; then no move is
+    skipped. CUDA tensors only; raises on any fault.
+    `launch_sweep.launches` counts the launches, `launch_sweep.by_kind`
+    each kind's (gated-off ones too: the host does not know the gate)."""
     tensors = (X, hx, scores)
-    if any(t.device.type != "cuda" or t.device != state.device or t.device != ops.HT.device for t in tensors):
+    if not ops.cuda or any(t.device != ops.sp.ent.device for t in tensors + (state,)):
         raise ValueError("launch_sweep runs on CUDA tensors on one device, the scoring tensors' and the state's")
     if any(t.dtype != torch.float32 or not t.is_contiguous() for t in tensors):
         raise ValueError("X, hx and scores must be contiguous float32 tensors")
-    lead = (ops.G, ops.B)
+    G, B, rows, vp = ops.G, ops.B, ops.rows, ops.vp
     if (
-        X.shape[-2:] != (ops.B, ops.HT.shape[1])
-        or hx.shape[-2:] != (ops.B, ops.HT.shape[2])
-        or X.numel() != ops.G * ops.B * ops.HT.shape[1]
-        or scores.numel() != ops.G * ops.B
-        or hx.numel() != ops.G * ops.B * ops.HT.shape[2]
+        X.shape[-2:] != (B, vp)
+        or hx.shape[-2:] != (B, rows)
+        or X.numel() != G * B * vp
+        or scores.numel() != G * B
+        or hx.numel() != G * B * rows
     ):
         raise ValueError("X %s, hx %s, scores %s do not match the group %s" % (
-            tuple(X.shape), tuple(hx.shape), tuple(scores.shape), lead))
+            tuple(X.shape), tuple(hx.shape), tuple(scores.shape), (G, B)))
     if state.dtype != torch.int32 or state.numel() != STATE_WORDS:
         raise ValueError("state must be the %d int32 words of new_state" % STATE_WORDS)
+    if kind not in ops.operands:
+        raise ValueError("this descent has no %s catalogue" % KINDS[kind])
     a, b, c, s, valid, M = ops.operands[kind]
     if M == 0:
         raise ValueError("the %s catalogue has no full chunk of %d" % (KINDS[kind], ops.chunk))
-    if move_scores is not None and (
-        move_scores.dtype != torch.float32
-        or not move_scores.is_contiguous()
-        or move_scores.numel() != ops.G * ops.B * M
-        or move_scores.device != X.device
-    ):
-        raise ValueError("move_scores must be a contiguous float32 [G, B, %d] tensor on X's device" % M)
+    for name, t, dtype, n in (("move_scores", move_scores, torch.float32, G * B * M),
+                              ("visits", visits, torch.int32, G * M)):
+        if t is not None and (t.dtype != dtype or not t.is_contiguous() or t.numel() != n or t.device != X.device):
+            raise ValueError("%s must be a contiguous %s tensor of %d elements on X's device" % (name, dtype, n))
     lib = _library()
 
     def ptr(t: Optional[torch.Tensor]):
         return t.data_ptr() if t is not None else None
 
-    rows, vp = ops.HT.shape[2], ops.HT.shape[1]
+    sp = ops.sp
     with _on_device(X.device):
+        ops._bind(hx, lib)
         err = lib.sweeps_launch(
             kind, ptr(a), ptr(b), ptr(c), ptr(s), ptr(valid), M, ops.chunk,
-            ops.HT.data_ptr(), ops.lb.data_ptr(), ops.ub.data_ptr(), ops.x_ub.data_ptr(),
-            X.data_ptr(), hx.data_ptr(), scores.data_ptr(),
-            ops.G, ops.B, rows, vp,
-            state.data_ptr(), ops.best.data_ptr(), ops.imp.data_ptr(), ptr(move_scores),
+            sp.ptr.data_ptr(), sp.ent.data_ptr(), sp.ent.shape[1], sp.bnd.data_ptr(), ops.x_ub.data_ptr(),
+            X.data_ptr(), hx.data_ptr(), ops.hxT.data_ptr(), scores.data_ptr(), ops.base.data_ptr(),
+            G, B, rows, vp,
+            state.data_ptr(), ops.best.data_ptr(), ops.imp.data_ptr(), ptr(move_scores), ptr(visits),
             torch.cuda.current_stream(X.device).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            "sweeps kernel launch failed: %s (cudaError %d)" % (lib.sweeps_error_string(err).decode(), err)
-        )
+    _check(lib, err, "sweeps kernel launch")
     with _COUNT_LOCK:
         launch_sweep.launches += 1
         launch_sweep.by_kind[kind] += 1
@@ -472,15 +607,25 @@ launch_sweep.by_kind = [0, 0, 0]
 
 
 def sweep_kernel(
-    kind: str, st: ScoringTensors, X, hx, scores, *catalogue, chunk: int = 128, state=None, want_move_scores=False
+    kind: str,
+    st: ScoringTensors,
+    X,
+    hx,
+    scores,
+    *catalogue,
+    chunk: int = 128,
+    state=None,
+    want_move_scores=False,
+    want_visits=False,
 ):
     """One sweep of `kind` ("delta", "moves" or "moves3") through the
     kernel, called as the plain sweep of that kind is and returning what
     it returns, (X', hx', scores', improved_any), on copies of X, hx and
-    scores; with `want_move_scores` also every move's hinge sum (see
-    `move_scores_plain`). `state` (default: `new_state(1)`, so the sweep
-    runs) gates it: a gated-off launch returns the inputs' values and no
-    improvement. CUDA tensors only."""
+    scores; with `want_move_scores` also every move's score (see
+    `move_scores_plain`), then with `want_visits` every move's |U_m|
+    ([G, M], or [M] for one case). `state` (default: `new_state(1)`, so
+    the sweep runs) gates it: a gated-off launch returns the inputs'
+    values and no improvement. CUDA tensors only."""
     k = KINDS.index(kind)
     if X.device.type != "cuda":
         raise ValueError("sweep_kernel runs on CUDA tensors; the plain sweeps serve the CPU")
@@ -488,13 +633,18 @@ def sweep_kernel(
     ops = SweepOps(st, X, chunk=chunk, **cats)
     X2, hx2, s2 = X.clone(), hx.clone(), scores.clone()
     state = new_state(1, X.device) if state is None else state
-    ms = None
-    if want_move_scores:
-        ms = torch.zeros(tuple(X.shape[:-1]) + (ops.operands[k][-1],), dtype=torch.float32, device=X.device)
-    launch_sweep(ops, k, X2, hx2, s2, state, ms)
+    M = ops.operands[k][-1]
+    ms = vis = None
+    if want_move_scores or want_visits:
+        ms = torch.zeros(tuple(X.shape[:-1]) + (M,), dtype=torch.float32, device=X.device)
+    if want_visits:
+        vis = torch.zeros(tuple(X.shape[:-2]) + (M,), dtype=torch.int32, device=X.device)
+    launch_sweep(ops, k, X2, hx2, s2, state, ms, vis)
     improved = ops.imp.bool().any(dim=-1)
     out = (X2, hx2, s2, improved[0] if X.dim() == 2 else improved)
-    return out + (ms,) if want_move_scores else out
+    if want_move_scores:
+        out += (ms,)
+    return out + (vis,) if want_visits else out
 
 
 def move_scores_plain(kind: str, st: ScoringTensors, hx: torch.Tensor, *catalogue, chunk: int = 128) -> torch.Tensor:
@@ -523,4 +673,87 @@ def move_scores_plain(kind: str, st: ScoringTensors, hx: torch.Tensor, *catalogu
                 D = (HT[:, b] + HT[:, c] - HT[:, a]) * s[:, None]
             parts.append(_hinge_sum(lb, ub, hx, D))
     out = torch.cat(parts, dim=-1)
+    return out[0] if single else out
+
+
+def _hinge1(lb, ub, v: torch.Tensor) -> torch.Tensor:
+    """max(max(v - ub, lb - v), 0), the kernel's hinge (equal to the plain
+    one while lb <= ub)."""
+    return torch.maximum(v - ub, lb - v).clamp_(min=0.0)
+
+
+def move_scores_sparse_plain(
+    kind: str, st: ScoringTensors, hx: torch.Tensor, *catalogue, chunk: int = 128
+) -> torch.Tensor:
+    """The kernel's formulation of every move's score, in plain PyTorch
+    and for checks only (nothing on a search path calls it): base(g, b),
+    the member's dense hinge sum, plus the sum over U_m, the union of the
+    supports of the move's columns in the sparse columns, of
+    hinge(hx + D_m) - hinge(hx), with the kernel's one-max hinge and its
+    -0 -> +0. Shapes and order as `move_scores_plain`: on integer targets
+    it equals it bit for bit."""
+    sp = sparse_columns(st)
+    single = hx.dim() == 2
+    if single:
+        hx = hx[None]
+    HT, U = sp.dense()
+    lb, ub = sp.bnd[..., 0], sp.bnd[..., 1]
+    h0 = _hinge1(lb[:, None, :], ub[:, None, :], hx)  # [G, B, Rows]
+    base = h0.sum(dim=-1)
+
+    def scores_of(D, support):  # D, support [G, n, Rows] -> [G, B, n]
+        v = hx[:, :, None, :] + D[:, None, :, :]
+        t = _hinge1(lb[:, None, None, :], ub[:, None, None, :], v) - h0[:, :, None, :]
+        diff = torch.where(support[:, None, :, :], t, 0.0).sum(dim=-1)
+        return (base[..., None] + diff).clamp_(min=0.0) + 0.0
+
+    parts = []
+    if kind == "delta":
+        Vp = HT.shape[1]
+        for c0 in range(0, (Vp // chunk) * chunk, chunk):
+            Hc, Uc = HT[:, c0 : c0 + chunk], U[:, c0 : c0 + chunk]
+            parts += [scores_of(Hc, Uc), scores_of(-Hc, Uc)]
+    else:
+        M = (catalogue[0].shape[0] // chunk) * chunk
+        for c0 in range(0, M, chunk):
+            if kind == "moves":
+                mm, mp = (t[c0 : c0 + chunk] for t in catalogue)
+                D, S = HT[:, mp] - HT[:, mm], U[:, mp] | U[:, mm]
+            else:
+                a, b, c, s = (t[c0 : c0 + chunk] for t in catalogue[:4])
+                D = (HT[:, b] + HT[:, c] - HT[:, a]) * s[:, None]
+                S = U[:, a] | U[:, b] | U[:, c]
+            parts.append(scores_of(D, S))
+    out = torch.cat(parts, dim=-1)
+    return out[0] if single else out
+
+
+def move_valid_plain(kind: str, X: torch.Tensor, x_ub: torch.Tensor, *catalogue, chunk: int = 128) -> torch.Tensor:
+    """JAX's validity of every move for every member, [..., B, M] bool for
+    X [..., B, Vp] and x_ub [..., Vp], in the order of `move_scores_plain`
+    (padding moves invalid)."""
+    single = X.dim() == 2
+    if single:
+        X, x_ub = X[None], x_ub[None]
+    xu = x_ub[:, None, :]
+    if kind == "delta":
+        Vp = X.shape[-1]
+        parts = []
+        for c0 in range(0, (Vp // chunk) * chunk, chunk):
+            xv, uv = X[..., c0 : c0 + chunk], xu[..., c0 : c0 + chunk]
+            parts += [~(xv + 1.0 > uv), ~(xv - 1.0 < 0.0)]
+        out = torch.cat(parts, dim=-1)
+    else:
+        M = (catalogue[0].shape[0] // chunk) * chunk
+        gi = torch.arange(X.shape[0], device=X.device)[:, None]
+        if kind == "moves":
+            mm, mp = (t[:M] for t in catalogue)
+            out = (X[..., mm] >= 1.0) & (X[..., mp] + 1.0 <= x_ub[gi, mp][:, None, :])
+        else:
+            a, b, c, s, valid = (t[:M] for t in catalogue)
+            need_bc = torch.where(b == c, 2.0, 1.0)
+            ok_split = (X[..., a] >= 1.0) & (X[..., b] + need_bc <= x_ub[gi, b][:, None, :]) & (
+                X[..., c] + 1.0 <= x_ub[gi, c][:, None, :])
+            ok_merge = (X[..., b] >= need_bc) & (X[..., c] >= 1.0) & (X[..., a] + 1.0 <= x_ub[gi, a][:, None, :])
+            out = torch.where(s > 0, ok_split, ok_merge) & valid.bool()
     return out[0] if single else out

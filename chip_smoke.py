@@ -23,14 +23,22 @@ and prints no result line:
    the plain version and one `torch.matmul(X, H.T)` in f32, each after
    an L2 flush, beside the least time the card could take, and the host
    time each takes to queue a call;
-3b. the sweep kernel (`launch_sweep`, csrc/sweeps.cu) against the plain
-   sweeps (solver/sweeps.py) on seeds 0-7 of the S=48 suite recipe,
-   case-stacked at G=1 and G=8, B=32: on the noise-free twins each kind
-   (delta, paired, triple) for a few sweeps in lockstep, X', hx', scores'
-   and the improved flags bitwise equal; on the noisy cases every move's
-   hinge sum within rtol 1e-5; then each kind's device time at G=1 and
-   G=8 beside the plain sweep's and the bound. No single PyTorch call
-   computes this function, so it has no library time;
+3b. the sweep kernel (`launch_sweep`, csrc/sweeps.cu, which reads the
+   sparse columns of H and visits for each move only U_m, the rows its
+   columns touch) against the plain sweeps (solver/sweeps.py) on seeds
+   0-7 of the S=48 suite recipe, case-stacked at G=1 and G=8, B=32: on
+   the noise-free twins each kind (delta, paired, triple) for a few
+   sweeps in lockstep, X', hx', scores' and the improved flags bitwise
+   equal; on the noisy cases every move's score within rtol 1e-5 and its
+   visited rows equal to |U_m| counted with torch; then each kind's
+   device time at G=1 and G=8 beside the dense tile kernel's that it
+   replaced, the plain sweep's, and the bound counted from the visited
+   rows (the dense work's figure printed beside it); then, for every
+   main path's program (S=16, S=32, S=48, S=64, S=96, S=128 and the
+   single-cell block program), the sparse columns' build time and bytes,
+   their largest and mean column, and the largest and mean |U_m| of the
+   paired and triple moves. No single PyTorch call computes this
+   function, so it has no library time;
 4. the single-case slice: the S=48 seed-0 case of the repo's 4xS48 suite
    through `python -m ambigram_tpu_torch.cli --op bfb --solver auto` on
    cuda, in process. Its program has more than 2048 variables, so auto
@@ -131,9 +139,9 @@ and prints no result line:
    the plain version, `torch.matmul` and the bound, as in phase 3; (d) a
    bounded device search on the noisy program (`solve_device`, one
    round, one sweep, no polish, no certificate): at least two K1
-   launches, all on its f32 path, and an integral x inside [0, x_ub].
-   The S=128 tensors (the f32 H and its transpose, 7.6 GB) are released
-   after it;
+   launches, all on its f32 path, and an integral x inside [0, x_ub],
+   and its peak device memory (its sweeps read the sparse columns, not
+   a dense 3.8 GB H.T). The S=128 tensors are released after it;
 21. a JSON line describing the kernels, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -620,18 +628,78 @@ def check_k2() -> dict:
 
 
 SWEEP_LOCKSTEP = {1: 3, 8: 2}  # sweeps held bitwise against plain, by group size
+# The dense tile kernel that the sparse one replaced, S=48 seed 0 (noise
+# 0.05), B=32, back to back: its device ms by (kind, G), measured by this
+# script on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6).
+DENSE_SWEEP_MS = {("delta", 1): 1.6197, ("moves", 1): 1.7316, ("moves3", 1): 10.5382,
+                  ("delta", 8): 5.1030, ("moves", 8): 8.8055, ("moves3", 8): 74.4417}
+SWEEP_OPS_PER_VISIT = 8  # f32 operations per (member, visited row): the add, two subs and two max of the
+# moved hinge, the sub of the hinge before and the add into the sum, and one of the four of the hinge before
 
 
-def sweep_bound(st, B: int, kind: str, M: int):
-    """The least time of one sweep of `kind` over M moves for G cases of
-    B members: the bytes (HT, the row bounds, x_ub, the catalogue read
-    once; X, hx and the scores read and written once) over the HBM rate,
-    or 7 f32 operations a hinge (add, two subs, two max, two adds) for
-    every case, member, move and row over the f32 peak, the larger."""
-    G, vp, rows = st.columns().shape
-    per_move = {"delta": 0, "moves": 8, "moves3": 17}[kind]
+def union_sizes(sp, kind: str, cat, chunk: int = 128):
+    """|U_m| of every move of a sweep, [G, M] int64 in the kernel's order,
+    counted with torch from the sparse columns' support."""
+    import torch
+
+    _, U = sp.dense()
+    G, Vp, _ = U.shape
+    if kind == "delta":
+        per_col = U.sum(dim=-1)
+        return per_col.reshape(G, Vp // chunk, 1, chunk).expand(G, Vp // chunk, 2, chunk).reshape(G, 2 * Vp)
+    M = (cat[0].shape[0] // chunk) * chunk
+    cols = cat[:2] if kind == "moves" else cat[:3]
+    out = []
+    for m0 in range(0, M, 4096):
+        sel = [t[m0 : min(M, m0 + 4096)] for t in cols]
+        acc = U[:, sel[0]]
+        for t in sel[1:]:
+            acc = acc | U[:, t]
+        out.append(acc.sum(dim=-1))
+    return torch.cat(out, dim=-1)
+
+
+def sweep_bound(sp, X, x_ub, kind: str, cat, visits, per_move: int):
+    """The least time of one sweep, counted from this run's inputs: the
+    operations, SWEEP_OPS_PER_VISIT f32 operations for every member,
+    valid move and row of the move's union U_m (a member needs nothing of
+    a move that would leave its box, and no row outside U_m, where the
+    hinge does not change), over the f32 peak; or the bytes, the sparse
+    columns, hx, X, the row bounds and the catalogue read once, over the
+    HBM rate; the larger. Returns (ms, by, visited rows)."""
+    import torch
+
+    from ambigram_tpu_torch.solver.sweeps import move_valid_plain
+
+    valid = move_valid_plain(kind, X, x_ub, *cat)  # [G, B, M]
+    visited = float((valid.sum(dim=1).to(torch.int64) * visits.to(torch.int64)).sum())
+    G, B, vp = X.shape
+    rows = sp.bnd.shape[1]
+    bytes_moved = (sp.ptr.numel() * 4 + sp.ent.numel() * 4 + sp.bnd.numel() * 4 + G * B * (rows + vp) * 4
+                   + visits.shape[-1] * per_move)
+    ms, by = bound_ms(bytes_moved, SWEEP_OPS_PER_VISIT * visited, F32_OPS_PER_S)
+    return ms, by, visited
+
+
+def dense_sweep_bound(G: int, rows: int, vp: int, B: int, M: int, per_move: int):
+    """The dense tile kernel's figure: 7 f32 operations a hinge over every
+    case, member, move and row, or the dense H.T read once."""
     bytes_moved = G * (vp * rows * 4 + 2 * rows * 4 + vp * 4) + M * per_move + 2 * G * B * (vp + rows + 1) * 4
     return bound_ms(bytes_moved, 7.0 * G * B * M * rows, F32_OPS_PER_S)
+
+
+def timed_sparse_columns(st):
+    """(sweeps.sparse_columns(st), its build's wall seconds): the first
+    call on `st` builds the columns, and the card is synced around it."""
+    import torch
+
+    from ambigram_tpu_torch.solver import sweeps
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sp = sweeps.sparse_columns(st)
+    torch.cuda.synchronize()
+    return sp, time.perf_counter() - t0
 
 
 def sweep_group(progs):
@@ -674,13 +742,14 @@ def check_sweeps(progs_exact, progs_noisy) -> dict:
     sweeps, then its times. On the S=48 noise-free twins (integer
     targets), case-stacked at G=1 and G=8 (seeds 0-7), each kind in
     lockstep for a few sweeps: X', hx', scores' and the per-case improved
-    flags bitwise. On the noisy cases (G=1 and G=8) every move's hinge sum
-    within rtol 1e-5 of the plain one (the rows are summed in another
-    order). Then each kind's device time at G=1 and G=8, back to back as
-    the descent runs them, beside the plain sweep's and the bound. No
-    single PyTorch call computes this function (a hinge sum of column
-    deltas, a masked first-minimum fold and the apply), so it has no
-    library time."""
+    flags bitwise. On the noisy cases (G=1 and G=8) every move's score
+    within rtol 1e-5 of the plain one (the kernel sums a base and the
+    changes over U_m, the plain version every row), and every move's
+    visited rows equal to |U_m| counted with torch. Then each kind's
+    device time at G=1 and G=8, back to back as the descent runs them,
+    beside the dense tile kernel's time, the plain sweep's and the bound
+    counted from the visited rows (and the dense figure). No single
+    PyTorch call computes this function, so it has no library time."""
     import torch
 
     from ambigram_tpu_torch.solver import sweeps
@@ -707,9 +776,13 @@ def check_sweeps(progs_exact, progs_noisy) -> dict:
     worst, timing = 0.0, {}
     for G in SWEEP_LOCKSTEP:
         st, X, hx, scores, cats = sweep_group(progs_noisy[:G])
+        sp, build_s = timed_sparse_columns(st)
+        log("sweeps sparse columns G=%d: %d entries (max %d a column), %d bytes with the bounds, built in %.4f s"
+            % (G, sp.nnz, sp.max_count, sp.nbytes, build_s))
         for kind in sweeps.KINDS:
             cat = cats[kind]
-            *_, got = sweeps.sweep_kernel(kind, st, X, hx, scores, *cat, want_move_scores=True)
+            *_, got, visits = sweeps.sweep_kernel(kind, st, X, hx, scores, *cat, want_move_scores=True,
+                                                  want_visits=True)
             want = sweeps.move_scores_plain(kind, st, hx, *cat)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
@@ -717,6 +790,9 @@ def check_sweeps(progs_exact, progs_noisy) -> dict:
             worst = max(worst, err)
             if rel > K1_RTOL:
                 raise AssertionError("sweep %s G=%d: move scores off plain by rel %g" % (kind, G, rel))
+            counted = union_sizes(sp, kind, cat)
+            if not torch.equal(visits.to(torch.int64), counted):
+                raise AssertionError("sweep %s G=%d: the kernel's visited rows differ from |U_m|" % (kind, G))
             M = got.shape[-1]
             del got, want
             ops = sweeps.SweepOps(st, X, cats["moves"], cats["moves3"])
@@ -732,19 +808,28 @@ def check_sweeps(progs_exact, progs_noisy) -> dict:
 
             p_iters = (2 if G == 1 else 1) if kind == "moves3" else 5
             plain_a = cuda_ms(plain, p_iters, 1 if G == 1 else 0)
-            kern_a = cuda_ms(kern, 10, 2)
-            kern_b = cuda_ms(kern, 10, 2)
+            kern_a = cuda_ms(kern, 20, 2)
+            kern_b = cuda_ms(kern, 20, 2)
             plain_b = cuda_ms(plain, p_iters, 1 if G == 1 else 0)
             kern_ms, plain_ms = (kern_a + kern_b) / 2, (plain_a + plain_b) / 2
-            bnd, by = sweep_bound(st, 32, kind, M)
-            timing[(kind, G)] = {"ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by, "moves": M}
+            per_move = {"delta": 0, "moves": 8, "moves3": 17}[kind]
+            bnd, by, visited = sweep_bound(sp, X, st.x_ub.reshape(G, -1), kind, cat, visits, per_move)
+            rows, vp = st.H.shape[-2:]
+            dense_bnd, dense_by = dense_sweep_bound(G, rows, vp, 32, M, per_move)
+            dense_ms = DENSE_SWEEP_MS[(kind, G)]
+            timing[(kind, G)] = {"ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by, "moves": M,
+                                 "visited_rows": visited, "union_max": int(counted.max()),
+                                 "union_mean": float(counted.float().mean())}
             log("sweeps time %s noise0.05 G=%d B=32 moves=%d rows=%d vp=%d (device, back to back): kernel %.4f ms "
-                "(%.4f, %.4f), plain %.4f ms (%.4f, %.4f), bound %.4f ms (%s), %.1fx the bound; move scores "
-                "within rel %.3g of plain (max_abs_err %r); library call: none computes this function"
-                % (kind, G, M, st.H.shape[-2], st.H.shape[-1], kern_ms, kern_a, kern_b, plain_ms, plain_a, plain_b,
-                   bnd, by, kern_ms / bnd, rel, err))
-            del ops, Xw, hxw, sw
-        del st, X, hx, scores, cats
+                "(%.4f, %.4f), %.1fx faster than the dense tile kernel's %.4f ms; plain %.4f ms (%.4f, %.4f); "
+                "bound %.4f ms (%s; %.0f visited rows over the valid (member, move) pairs, |U_m| max %d mean %.1f), "
+                "%.1fx the bound; dense work's figure %.4f ms (%s); move scores within rel %.3g of plain "
+                "(max_abs_err %r); library call: none computes this function"
+                % (kind, G, M, rows, vp, kern_ms, kern_a, kern_b, dense_ms / kern_ms, dense_ms, plain_ms, plain_a,
+                   plain_b, bnd, by, visited, int(counted.max()), float(counted.float().mean()), kern_ms / bnd,
+                   dense_bnd, dense_by, rel, err))
+            del ops, Xw, hxw, sw, visits, counted
+        del st, X, hx, scores, cats, sp
         torch.cuda.empty_cache()
     head = timing[("moves3", 1)]
     return {
@@ -754,8 +839,71 @@ def check_sweeps(progs_exact, progs_noisy) -> dict:
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": None,
+        "visited_rows": head["visited_rows"],
         "by_kind": {"%s_G%d" % key: val for key, val in timing.items()},
     }
+
+
+def sweep_program_stats(workdir: str, prog_s48) -> dict:
+    """Phase 3b: the sparse columns of every main path's program: the
+    proxy's S=16 (its first case), the batch's S=32 (seed 200), the slice's
+    S=48, the big leg's S=64, S=96 and S=128, and the single-cell block
+    program (K=3, S=32, seed 3). For each, the columns' build time and
+    bytes, the entries a column holds (max, mean), and |U_m| of every
+    paired and triple move (max, mean), counted by the kernel on one
+    member with every move visited. Returns {label: numbers}."""
+    import torch
+
+    from ambigram_tpu_torch.bench import big_case_path
+    from ambigram_tpu_torch.engine.pipeline import extract_programs
+    from ambigram_tpu_torch.scripts.simulate import simulate_bfb_case, write_case
+    from ambigram_tpu_torch.solver import sweeps
+    from ambigram_tpu_torch.solver.score import scoring_tensors
+    from ambigram_tpu_torch.solver.search import _device_moves
+
+    def s32():
+        case = simulate_bfb_case(noise=0.05, **BATCH_S32)
+        return extract_programs(write_case(case, os.path.join(workdir, "stats_s32"))["lh"])[0]
+
+    progs = {
+        "S=16 proxy (its first case)": lambda: proxy_programs(workdir)[0],
+        "S=32 batch seed 200": s32,
+        "S=48 seed 0": lambda: prog_s48,
+        "S=64 big seed 364": lambda: extract_programs(big_case_path(workdir, 64, 0.05))[0],
+        "S=96 big seed 396": lambda: extract_programs(big_case_path(workdir, 96, 0.05))[0],
+        "S=128 big seed 428": lambda: extract_programs(big_case_path(workdir, 128, 0.05))[0],
+        "sc block K=3 S=32 seed 3": lambda: sc_block_program(*sc_sample(workdir, SC_SLICE_SEED)[1:]),
+    }
+    out = {}
+    for label, make in progs.items():
+        prog = make()
+        st = scoring_tensors(prog, DEVICE)
+        sp, build_s = timed_sparse_columns(st)
+        rows, vp = st.H.shape
+        counts = (sp.ptr[0, 1:] - sp.ptr[0, :-1] - 1).float()
+        moves, moves3 = _device_moves(prog, torch.device(DEVICE))
+        X = torch.zeros((1, vp), device=DEVICE)
+        hx = torch.zeros((1, rows), device=DEVICE)
+        scores = torch.zeros(1, device=DEVICE)
+        row = {"rows": rows, "vp": vp, "entries": sp.nnz, "density": sp.nnz / (rows * vp),
+               "column_max": sp.max_count, "column_mean": float(counts[: prog.num_vars].mean()),
+               "build_s": build_s, "bytes": sp.nbytes}
+        for kind, cat in (("moves", moves), ("moves3", moves3)):
+            *_, visits = sweeps.sweep_kernel(kind, st, X, hx, scores, *cat, want_visits=True)
+            visits = visits.float()
+            row["%s_moves" % kind] = int(visits.numel())
+            row["%s_union_max" % kind] = int(visits.max())
+            row["%s_union_mean" % kind] = float(visits.mean())
+        log("sweeps sparse columns %s: rows %d vp %d, %d entries (density %.4f), a column holds at most %d (mean "
+            "%.1f over the variables); |U_m| paired max %d mean %.1f over %d moves, triple max %d mean %.1f over %d "
+            "moves; built in %.4f s, %d bytes"
+            % (label, rows, vp, sp.nnz, row["density"], sp.max_count, row["column_mean"], row["moves_union_max"],
+               row["moves_union_mean"], row["moves_moves"], row["moves3_union_max"], row["moves3_union_mean"],
+               row["moves3_moves"], build_s, sp.nbytes))
+        out[label] = row
+        del st, sp, X, hx, scores
+        torch.cuda.empty_cache()
+    return out
 
 
 def sweep_launches() -> int:
@@ -1568,10 +1716,16 @@ def run_s128_search(prog) -> dict:
 
     GLOBAL.reset()
     reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     res = solve_device(prog, device=DEVICE, rounds=1, max_sweeps=1, polish=False, certify=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    log("s128 search: peak device memory %d bytes (%.3f GB; %.3f GB allocated before it)" % (peak, peak / 1e9,
+                                                                                          before / 1e9))
     launches, int8_launches, f32_launches = score_rows.launches, score_rows.int8_launches, score_rows.f32_launches
     sweeps = sweep_launches()
     x = np.asarray(res.x, dtype=np.float64)
@@ -1588,7 +1742,7 @@ def run_s128_search(prog) -> dict:
     if sweeps < 1:
         raise AssertionError("the S=128 search never launched the sweep kernel")
     return {"launches": launches, "int8_launches": int8_launches, "f32_launches": f32_launches,
-            "sweep_launches": sweeps, "wall": wall, "hard_violation": vio}
+            "sweep_launches": sweeps, "wall": wall, "hard_violation": vio, "peak_bytes": peak}
 
 
 def check_s128(workdir: str) -> tuple:
@@ -1685,6 +1839,7 @@ def main() -> int:
         prog_exact = extract_programs(lh_exact)[0]
         k1 = check_k1({"noise0.05": prog, "noise0": prog_exact})
         sweeps = check_sweeps(*sweep_programs(workdir, prog_exact, prog))
+        sweep_stats = sweep_program_stats(workdir, prog)
         sl = run_slice(lh)
         k2 = check_k2()
         from ambigram_tpu_torch.scripts.simulate import simulate_bfb_case, write_case
@@ -1732,7 +1887,10 @@ def main() -> int:
                 "bound_by": sweeps["bound_by"],
                 "library_ms": sweeps["library_ms"],
                 "shape": "triple sweep, S=48 seed 0, G=1, B=32",
+                "visited_rows": sweeps["visited_rows"],
                 "by_kind": sweeps["by_kind"],
+                "programs": sweep_stats,
+                "s128_search_peak_bytes": s128_search["peak_bytes"],
             },
             {
                 "name": "score_rows",

@@ -721,6 +721,54 @@ def test_sweep_kernel_move_scores_on_the_noisy_s48_case(cuda_device, tmp_path):
         assert rel <= 1e-5, "%s: rel %g" % (kind, rel)
 
 
+def test_sweep_kernel_takes_no_move_from_a_converged_noisy_state(cuda_device, tmp_path):
+    """Accepts are strictly improving on noisy targets too. On the noisy
+    S=48 seed-0 case the plain sweeps (dense sums) descend until no tier
+    takes a move; from there one kernel sweep of each kind takes none:
+    with the members' scores as the plain descent left them, with each
+    raised by 16 ulps (a score that rounded above the member's dense
+    hinge sum, as K1's or a last move's base + change can), and doubled.
+    The kernel tests a move against the member's base, the sum its score
+    was formed from, so the score it is handed admits no move that does
+    not lower that sum; a test against the score would take the best
+    move whenever the score lies above base + its change. Any move the
+    kernel takes must lower the member's hinge sum computed in f64."""
+    from ambigram_tpu_torch.solver import sweeps
+
+    prog = simulated_prog(tmp_path, 0, 48, rounds=5, coverage=30.0, mode="process", noise=0.05)
+    st, X, hx, scores = stacked_start([prog], cuda_device, B=8)
+    moves, moves3 = search._device_moves(prog, cuda_device)
+    cats = {kind: SWEEP_CATALOGUE[kind](moves, moves3) for kind in sweeps.KINDS}
+    for _ in range(600):
+        for kind in sweeps.KINDS:
+            X, hx, scores, improved = sweeps.PLAIN_SWEEPS[kind](st, X, hx, scores, *cats[kind])
+            if bool(improved.any()):
+                break
+        else:
+            break
+    else:
+        raise AssertionError("the plain descent did not converge in 600 iterations")
+    H64, lb, ub = st.H[0].double(), st.lb[0].double(), st.ub[0].double()
+
+    def hinge_sum64(X):
+        v = X[0].double() @ H64.T
+        return ((v - ub).clamp(min=0.0) + (lb - v).clamp(min=0.0)).sum(dim=-1)
+
+    raised = scores.clone()
+    for _ in range(16):
+        raised = torch.nextafter(raised, torch.full_like(raised, float("inf")))
+    for kind in sweeps.KINDS:
+        for label, s_in in (("as left", scores), ("raised 16 ulps", raised), ("doubled", 2.0 * scores)):
+            X2, _, _, improved = sweeps.sweep_kernel(kind, st, X, hx, s_in, *cats[kind])
+            moved = (X2 != X).any(dim=-1)[0]
+            change = (hinge_sum64(X2) - hinge_sum64(X))[moved].tolist()
+            assert all(c < 0.0 for c in change), "%s, scores %s: a move that does not improve: %s" % (
+                kind, label, change)
+            assert not bool(improved.any()) and not bool(moved.any()), (
+                "%s, scores %s: the kernel took %d moves from a converged state (f64 changes %s)" % (
+                    kind, label, int(moved.sum()), change))
+
+
 @pytest.mark.parametrize("kind", ["delta", "moves", "moves3"])
 def test_sweep_kernel_tie_order(cuda_device, kind):
     """The tie case (`tie_case`): the kernel picks the plain version's
@@ -827,3 +875,115 @@ def test_windowed_batch_equals_serial_on_card(cuda_device, tmp_path, monkeypatch
     serial = search.solve_device_batch(progs, **kw)
     for a, b in zip(windowed, serial):
         assert np.array_equal(a.x, b.x) and a.epsilon_sum == b.epsilon_sum
+
+
+@pytest.mark.parametrize("G, B", [(1, 1), (1, 33), (2, 33)])
+@pytest.mark.parametrize("kind", ["delta", "moves", "moves3"])
+def test_sweep_kernel_ragged_members(cuda_device, tmp_path, kind, G, B):
+    """Populations that leave lanes of the kernel's warps idle (B = 1, and
+    33 = a warp and one member) against the plain sweeps, four sweeps in
+    lockstep: X', hx', scores' and the improved flags bitwise."""
+    from ambigram_tpu_torch.solver import sweeps
+
+    progs = [simulated_prog(tmp_path, seed=s, n_segments=24, mode="nested") for s in range(G)]
+    st, X, hx, scores = stacked_start(progs, cuda_device, B=B)
+    if G == 1:  # one case without the case axis
+        st, X, hx, scores = st.case(0), X[0], hx[0], scores[0]
+    cat = SWEEP_CATALOGUE[kind](*search._device_moves(progs[0], cuda_device))
+    for step in range(4):
+        want = sweeps.PLAIN_SWEEPS[kind](st, X, hx, scores, *cat)
+        got = sweeps.sweep_kernel(kind, st, X, hx, scores, *cat)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("X", "hx", "scores", "improved"), got, want):
+            assert torch.equal(a, b), "%s G=%d B=%d step %d: %s differs" % (kind, G, B, step, name)
+        X, hx, scores = want[:3]
+
+
+@pytest.mark.parametrize("kind", ["delta", "moves", "moves3"])
+def test_sweep_kernel_scores_and_visits_match_the_sparse_mirror(cuda_device, tmp_path, kind):
+    """Every move's score (none skipped) equals the dense plain one and its
+    plain sparse mirror bitwise on an integer-target pair of cases, and
+    every move's visited rows are |U_m|, the union of its columns'
+    supports."""
+    from ambigram_tpu_torch.solver import sweeps
+
+    progs = [simulated_prog(tmp_path, seed=s, n_segments=24, mode="nested") for s in (7, 8)]
+    st, X, hx, scores = stacked_start(progs, cuda_device)
+    cat = SWEEP_CATALOGUE[kind](*search._device_moves(progs[0], cuda_device))
+    *_, got, visits = sweeps.sweep_kernel(kind, st, X, hx, scores, *cat, want_move_scores=True, want_visits=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sweeps.move_scores_plain(kind, st, hx, *cat))
+    assert torch.equal(got, sweeps.move_scores_sparse_plain(kind, st, hx, *cat))
+    _, U = sweeps.sparse_columns(st).dense()
+    if kind == "delta":
+        per_col = U.sum(dim=-1).to(torch.int32)  # [G, Vp]
+        G, Vp = per_col.shape
+        want = per_col.reshape(G, Vp // 128, 1, 128).expand(G, Vp // 128, 2, 128).reshape(G, 2 * Vp)
+    elif kind == "moves":
+        M = visits.shape[-1]
+        mm, mp = (t[:M] for t in cat)
+        want = (U[:, mm] | U[:, mp]).sum(dim=-1).to(torch.int32)
+    else:
+        M = visits.shape[-1]
+        a, b, c = (t[:M] for t in cat[:3])
+        want = (U[:, a] | U[:, b] | U[:, c]).sum(dim=-1).to(torch.int32)
+    assert torch.equal(visits, want)
+
+
+def test_sweep_kernel_on_the_s96_twin(cuda_device, tmp_path):
+    """The big leg's S=96 noise-free twin (Rows 32512, Vp 9344, far past
+    the rows of the S=48 programs): one sweep of each kind bitwise against
+    plain; the triple sweep on the first 64 chunks of its catalogue, since
+    the plain one takes minutes over all of it."""
+    from ambigram_tpu_torch.solver import sweeps
+
+    prog = extract_programs(bench.big_case_path(str(tmp_path), 96, 0.0))[0]
+    st, X, hx, scores = stacked_start([prog], cuda_device)
+    moves, moves3 = search._device_moves(prog, cuda_device)
+    cats = {"delta": (), "moves": moves, "moves3": tuple(t[: 64 * 128] for t in moves3)}
+    for kind, cat in cats.items():
+        want = sweeps.PLAIN_SWEEPS[kind](st, X, hx, scores, *cat)
+        got = sweeps.sweep_kernel(kind, st, X, hx, scores, *cat)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("X", "hx", "scores", "improved"), got, want):
+            assert torch.equal(a, b), "S=96 %s: %s differs" % (kind, name)
+
+
+def test_card_search_matches_the_cpu_search_on_s32(cuda_device, tmp_path):
+    """A bounded seeded device search (no LNS, no certificate) on an
+    integer-target S=32 program, on the card and on the CPU: the kicks are
+    drawn on the host and every sum is exact, so x and the three sweep
+    counts come out equal."""
+    from ambigram_tpu_torch.utils.profiling import GLOBAL
+
+    prog = simulated_prog(tmp_path, seed=200, n_segments=32, rounds=5, mode="process")
+    kw = dict(seed=5, pop=16, rounds=2, max_sweeps=48, certify=False, polish=False)
+    counts = []
+    results = []
+    for device in (cuda_device, torch.device("cpu")):
+        GLOBAL.reset()
+        results.append(search.solve_device(prog, device=device, **kw))
+        counts.append([GLOBAL.counters.get("search.%s_sweeps" % k, 0) for k in ("delta", "move", "move3")])
+    assert np.array_equal(results[0].x, results[1].x)
+    assert counts[0] == counts[1] and counts[0][0] >= 1
+
+
+def test_card_descent_never_reads_the_dense_columns(cuda_device, tmp_path, monkeypatch):
+    """The card's sweeps read the sparse columns only: a descent with
+    `ScoringTensors.columns` made to raise still runs, and lands where the
+    CPU descent lands."""
+    progs = [simulated_prog(tmp_path, seed=s, n_segments=24, mode="nested") for s in (9, 10)]
+    st, X, hx, scores = stacked_start(progs, cuda_device)
+    moves, moves3 = search._device_moves(progs[0], cuda_device)
+    cpu_moves, cpu_moves3 = search._device_moves(progs[0], torch.device("cpu"))
+    want = search.descend_loop(stack_cases(progs, "cpu"), X.cpu(), hx.cpu(), scores.cpu(), 32, 128,
+                               cpu_moves, cpu_moves3)
+
+    def refuse(self):
+        raise AssertionError("the card's sweeps read the dense H.T")
+
+    monkeypatch.setattr(ScoringTensors, "columns", refuse)
+    got = search.descend_loop(st, X, hx, scores, 32, 128, moves, moves3)
+    assert tuple(got[3:]) == tuple(want[3:])
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a.cpu(), b)
