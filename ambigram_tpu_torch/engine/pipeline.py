@@ -14,7 +14,7 @@ line. Where the port differs:
   (a `parallel.mesh.Mesh` of torch devices). `mesh=None` is the (1, 1)
   mesh of `device`, not every visible card as in JAX: on a host with
   several cards that is still the one-card route, because the 16-case
-  batch took 206.4 s over four NVIDIA H100s against 123.5 s on one
+  batch took 34.1 s over four NVIDIA H100s against 18.3 s on one
   (PERF.md); the multi-card route is `mesh=make_mesh()`.
 """
 

@@ -30,6 +30,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import math
 import threading
 from dataclasses import dataclass
@@ -95,10 +96,15 @@ class ScoringTensors:
         return self.int8_ok and self.x_ub_max <= 127.0
 
     def h8_absmax(self) -> int:
-        """max |H8| (read from the tensor once, then cached)."""
+        """max |H8| (read from the tensor once, then cached): the int8
+        tensor's minimum and maximum, widened on the host, so no copy of
+        H8 is made."""
         if self._h8_absmax is None:
-            h = self.H8.to(torch.int16).abs()
-            self._h8_absmax = int(h.max()) if h.numel() else 0
+            if self.H8.numel():
+                lo, hi = torch.aminmax(self.H8)
+                self._h8_absmax = max(-int(lo), int(hi))
+            else:
+                self._h8_absmax = 0
         return self._h8_absmax
 
     def int8_hx_exact(self) -> bool:
@@ -159,8 +165,12 @@ def _expand_f32(H8, lb_raw, ub_raw, w):
     bounds, so any hx lands inside [-BIG, BIG] with zero hinge.
 
     Leading case axes broadcast through, so one call also expands a
-    case-stacked set (the JAX package's vmapped `_expand_f32_cases`)."""
-    H = w[..., None] * H8.to(torch.float32)
+    case-stacked set (the JAX package's vmapped `_expand_f32_cases`).
+    H is scaled in place in its own f32 copy of H8, so the expansion
+    holds one H-sized tensor, as XLA's fused jit of the JAX function
+    does (an eager `w * H8.float()` would hold two)."""
+    H = H8.to(torch.float32)
+    H.mul_(w[..., None])
     lb = torch.clamp(w * lb_raw, min=-_BIG)
     ub = torch.clamp(w * ub_raw, max=_BIG)
     pad = w == 0.0
@@ -366,15 +376,168 @@ def score_rows_plain(
     return score_from_hx(st, hx), (hx if want_hx else None)
 
 
+K1_TILE = 64  # rows of the int8 kernel's tile (one wgmma M): its partial sums are per tile
+K1_KCHUNK = 128  # bytes of K a stage of the int8 kernel holds
+K1_SMS = 132  # the H100's streaming multiprocessors
+K1_SMEM_MAX = 232448  # shared memory one H100 block may use
+K1_MAX_STAGES = 8
+K1_MODES = {("cands", False): 0, ("rows", True): 1, ("rows", False): 2}
+
+
+@dataclass(frozen=True)
+class K1Int8Plan:
+    """How one launch of K1's int8 path is cut (`k1_int8_plan`).
+
+    order "rows" (row-streaming): blocks split the rows, and each stage
+    brings the candidates' f32 box beside its H8 box, converted into u8
+    planes in the stage. order "cands" (candidate-stationary): a block
+    converts its candidates once, keeps them in shared memory and walks
+    its rows (every row when splits is 1). split_rows: the two consumer
+    warpgroups take two 64-row tiles of the same candidates; else two
+    halves of the candidates on one tile. bn candidates a block, nw the
+    wgmma N of a warpgroup (planes x its candidates), splits blocks along
+    the rows of each candidate tile, steps_per_split row steps (of 128
+    rows when split_rows, else 64) each; smem the block's dynamic shared
+    memory; grid (candidate tiles x cases, splits, 1)."""
+
+    order: str
+    split_rows: bool
+    bn: int
+    nw: int
+    stages: int
+    splits: int
+    steps_per_split: int
+    smem: int
+    grid: Tuple[int, int, int]
+
+    @property
+    def mode(self) -> int:
+        return K1_MODES[(self.order, self.split_rows)]
+
+    @property
+    def direct(self) -> bool:
+        """One block walks every row of its candidates and sums their
+        scores in registers; otherwise the row tiles' partial sums go
+        through device memory and the last block of a candidate tile sums
+        them."""
+        return self.order == "cands" and self.splits == 1
+
+
+def k1_int8_smem(planes: int, bn: int, mode: int, stages: int, vp: int) -> int:
+    """Bytes of dynamic shared memory a block of K1's int8 kernel takes
+    (csrc/score_rows.cu `i8_layout`, which computes the same): 1024 of
+    alignment, the resident planes, the ring's stages, the partial sums,
+    a flag and the barriers."""
+    vp_pad = _round_up(vp, K1_KCHUNK)
+    resident, split_rows = mode == 0, mode == 1
+    bnw = bn if split_rows else bn // 2
+    res = planes * bn * vp_pad if resident else 0
+    stage = (2 if split_rows else 1) * K1_TILE * K1_KCHUNK
+    if not resident:
+        stage += planes * bn * K1_KCHUNK + bn * K1_KCHUNK * 4
+    return 1024 + res + stages * stage + 4 * (2 * 4 * bnw) + 16 + 2 * 8 * stages
+
+
+def _k1_deepest(planes: int, bn: int, mode: int, vp: int, least: int) -> int:
+    """The most stages (at most K1_MAX_STAGES) that fit a block, or 0 when
+    fewer than `least` do."""
+    for stages in range(K1_MAX_STAGES, least - 1, -1):
+        if k1_int8_smem(planes, bn, mode, stages, vp) <= K1_SMEM_MAX:
+            return stages
+    return 0
+
+
+@functools.lru_cache(maxsize=1024)
+def k1_int8_plan(B: int, rows: int, vp: int, planes: int, cases: int = 1) -> K1Int8Plan:
+    """The plan of one launch of K1's int8 path: a pure function of the
+    shape, so a case-stacked launch and a single-case one sum each
+    candidate's score in the same order (the kernel's order does not
+    depend on the plan at all; see `score_rows_int8_plain`).
+
+    Candidate-stationary when B > 64 and the block's candidates fit in
+    shared memory as planes beside a ring of at least 4 stages (128, else
+    64, else 32 of them a block; at the sc block's width 64 leave room
+    for only 3, and the shallower ring was the slower): each candidate's
+    f32 bytes are read once per block instead of once per row tile. When
+    the candidate tiles of all cases are fewer than the card's 132 SMs,
+    the rows are split so that the blocks fill about one wave.
+
+    Row-streaming otherwise (the search's B=32, and the two-plane S=96
+    widths): 32 candidates a block (64 when B > 32), converted per stage
+    from their TMA box; the two warpgroups take two 64-row tiles of them,
+    or, where that gives fewer blocks, two halves of 32 candidates on one
+    64-row tile (S=48 at B=32: 128 blocks instead of 64). The rows are
+    split into about one wave of blocks, each walking its rows with the
+    ring kept full.
+    Every shape `k1_planes` admits (rows and Vp multiples of 64, 1 or 2
+    planes, B >= 1, any case count) has a plan."""
+    if planes not in (1, 2) or rows <= 0 or vp <= 0 or rows % K1_TILE or vp % 64 or B < 1 or cases < 1:
+        raise ValueError("no int8 plan for B %d, rows %d, vp %d, planes %d, cases %d" % (B, rows, vp, planes, cases))
+    T = rows // K1_TILE
+
+    def plan(order, split_rows, bn, stages, steps):
+        ctiles = -(-B // bn)
+        splits = max(1, min(steps, K1_SMS // (ctiles * cases)))
+        sps = -(-steps // splits)
+        splits = -(-steps // sps)
+        mode = K1_MODES[(order, split_rows)]
+        nw = planes * (bn if split_rows else bn // 2)
+        return K1Int8Plan(order, split_rows, bn, nw, stages, splits, sps,
+                          k1_int8_smem(planes, bn, mode, stages, vp), (ctiles * cases, splits, 1))
+
+    if B > 64:
+        for bn in (128, 64, 32):
+            stages = _k1_deepest(planes, bn, 0, vp, least=4)
+            if stages:
+                return plan("cands", False, bn, stages, T)
+    bn = 32 if B <= 32 else 64
+    pair = plan("rows", True, bn, _k1_deepest(planes, bn, 1, vp, least=2), -(-T // 2))
+    if bn == 64:
+        return pair
+    halves = plan("rows", False, bn, _k1_deepest(planes, bn, 2, vp, least=2), T)
+    return halves if halves.grid[0] * halves.grid[1] > pair.grid[0] * pair.grid[1] else pair
+
+
+def k1_x_planes(X: torch.Tensor, planes: int) -> torch.Tensor:
+    """The candidates as K1's int8 kernel converts them: each value
+    truncated toward zero to an integer (`__float2int_rz`), plane p its
+    byte p. [..., B, Vp] f32 -> [planes, ..., B, Vp] int32 in [0, 255]."""
+    xi = torch.trunc(X).to(torch.int32)
+    return torch.stack([(xi >> (8 * p)) & 255 for p in range(planes)])
+
+
+def k1_tile_sums(terms: torch.Tensor) -> torch.Tensor:
+    """Sum each candidate's hinge terms over the rows in the order of
+    K1's int8 kernel: terms [..., Rows] (Rows a multiple of 64) -> [...].
+
+    Within a 64-row tile, row 16 w + 8 h + g (warp w, the thread's two
+    rows h, lane group g): the two rows of a thread, then a pairwise tree
+    over g (lanes 4, 8 and 16 apart), then the four warps in order; then
+    the tiles in tile order, from 0."""
+    *lead, rows = terms.shape
+    t = terms.reshape(*lead, rows // K1_TILE, 4, 2, 8)
+    v = t[..., 0, :] + t[..., 1, :]
+    v = v[..., 0::2] + v[..., 1::2]
+    v = v[..., 0::2] + v[..., 1::2]
+    v = v[..., 0] + v[..., 1]
+    p = ((v[..., 0] + v[..., 1]) + v[..., 2]) + v[..., 3]
+    s = torch.zeros(lead, dtype=terms.dtype, device=terms.device)
+    for tile in range(p.shape[-1]):
+        s = s + p[..., tile]
+    return s
+
+
 def score_rows_int8_plain(
     st: ScoringTensors, X: torch.Tensor, want_hx: bool = False
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The arithmetic of K1's int8 path in plain PyTorch, on the CPU
     (torch has no int32 matmul on CUDA): the candidates truncated to u8
-    planes (the low byte, and the high byte when `k1_planes` says 2),
-    each plane's int32 product with H8, hx = w * float(256 hi + lo), then
-    the f32 hinges of `score_from_hx`. Bitwise equal to
-    `score_rows_plain` wherever `k1_planes` is not 0."""
+    planes (`k1_x_planes`), each plane's int32 product with H8, hx = w *
+    float(256 hi + lo), the f32 hinges max(hx - ub, 0) + max(lb - hx, 0)
+    of each row, summed in the kernel's order (`k1_tile_sums`). hx is
+    bitwise equal to `score_rows_plain`'s wherever `k1_planes` is not 0;
+    so are the scores on integer targets, where every sum is exact, and
+    on noisy targets they are the kernel's own f32 sums."""
     planes = k1_planes(st)
     if not planes:
         raise ValueError("the rows are not int8-exact for K1's int8 path (k1_planes is 0)")
@@ -382,17 +545,18 @@ def score_rows_int8_plain(
         outs = [score_rows_int8_plain(st.case(g), X[g], want_hx) for g in range(X.shape[0])]
         scores = torch.stack([s for s, _ in outs])
         return scores, (torch.stack([h for _, h in outs]) if want_hx else None)
-    xi = torch.trunc(X).to(torch.int32)
+    xq = k1_x_planes(X, planes)
     H8t = st.H8.to(torch.int32).t()
     hx_int = torch.zeros((X.shape[0], H8t.shape[1]), dtype=torch.int32, device=X.device)
     for p in range(planes):
-        hx_int += (256**p) * torch.matmul((xi >> (8 * p)) & 255, H8t)
+        hx_int += (256**p) * torch.matmul(xq[p], H8t)
     hx = st.w * hx_int.to(torch.float32)
-    return score_from_hx(st, hx), (hx if want_hx else None)
+    terms = torch.clamp(hx - st.ub, min=0.0) + torch.clamp(st.lb - hx, min=0.0)
+    return k1_tile_sums(terms), (hx if want_hx else None)
 
 
 _K1_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_K1_I8_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_K1_I8_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 def _k1_library() -> ctypes.CDLL:
@@ -406,11 +570,27 @@ def _k1_library() -> ctypes.CDLL:
         lib.score_rows_f32_scratch_bytes.restype = ctypes.c_longlong
         lib.score_rows_i8_launch.argtypes = _K1_I8_ARGTYPES
         lib.score_rows_i8_launch.restype = ctypes.c_int
-        lib.score_rows_i8_scratch_bytes.argtypes = [ctypes.c_int] * 5
-        lib.score_rows_i8_scratch_bytes.restype = ctypes.c_longlong
         lib.score_rows_error_string.argtypes = [ctypes.c_int]
         lib.score_rows_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# one int32 ticket per (case, candidate tile) for the int8 kernel's last
+# block, per (device, stream): zero between launches (the last block of a
+# tile resets its ticket), so launches on one stream reuse them in order,
+# and launches on other streams never share them
+_K1_TICKETS: dict = {}
+
+
+def _k1_tickets(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    with _COUNT_LOCK:
+        key = (dev.index, stream)
+        t = _K1_TICKETS.get(key)
+        if t is None or t.numel() < n:
+            # made on the host and copied: no fill kernel on the card
+            t = torch.zeros(max(n, 4096), dtype=torch.int32).to(dev)
+            _K1_TICKETS[key] = t
+        return t
 
 
 def score_rows(
@@ -424,9 +604,10 @@ def score_rows(
     [G, B, Rows] or None), bitwise equal to G single-case calls.
 
     CUDA tensors launch K1 (csrc/score_rows.cu) and raise on any fault:
-    its int8 tensor-core path (H8 and w) when `k1_planes(st)` allows it,
-    else its f32 path (H). X must hold the search's candidates: integers
-    in [0, x_ub]. CPU tensors take the plain version.
+    its int8 tensor-core path (H8 and w; one launch, cut by
+    `k1_int8_plan`) when `k1_planes(st)` allows it, else its f32 path
+    (H). X must hold the search's candidates: integers in [0, x_ub].
+    CPU tensors take the plain version.
     `score_rows.launches` counts the kernel's launches, and
     `score_rows.int8_launches` and `score_rows.f32_launches` each path's
     (under a lock: several threads may launch at once)."""
@@ -465,28 +646,37 @@ def score_rows(
         or st.H8.device != dev
         or st.w.device != dev
         or not (st.H8.is_contiguous() and st.w.is_contiguous())
+        or (X.data_ptr() | st.H8.data_ptr()) % 16
     ):
-        raise ValueError("H8 and w must match H and lb, contiguous, on X's device")
+        raise ValueError("H8 and w must match H and lb, contiguous, on X's device, X and H8 16-byte aligned")
     with torch.cuda.device(dev) if dev.index != torch.cuda.current_device() else contextlib.nullcontext():
         stream = torch.cuda.current_stream().cuda_stream
         if planes:
-            scratch = torch.empty(
-                lib.score_rows_i8_scratch_bytes(cases, B, rows, Vp, planes), dtype=torch.uint8, device=dev
+            plan = k1_int8_plan(B, rows, Vp, planes, cases)
+            partial = None if plan.direct else torch.empty(
+                (cases, rows // K1_TILE, B), dtype=torch.float32, device=dev
             )
+            tickets = _k1_tickets(dev, stream, plan.grid[0])
             err = lib.score_rows_i8_launch(
                 st.H8.data_ptr(),
                 st.w.data_ptr(),
                 lb.data_ptr(),
                 ub.data_ptr(),
                 X.data_ptr(),
-                scratch.data_ptr(),
                 hx.data_ptr() if hx is not None else None,
                 scores.data_ptr(),
+                partial.data_ptr() if partial is not None else None,
+                tickets.data_ptr(),
                 cases,
                 B,
                 rows,
                 Vp,
                 planes,
+                plan.mode,
+                plan.bn,
+                plan.stages,
+                plan.splits,
+                plan.steps_per_split,
                 stream,
             )
         else:

@@ -8,9 +8,10 @@ and prints no result line:
 1. the card: nvidia-smi's name and power limit; a CUDA device must exist;
 2. build every kernel of the port's paths from csrc/ (nvcc, sm_90a), one
    nvcc per source, all started together; ptxas's register and spill
-   report (K1's f32 kernels and the sweep kernels must spill nothing),
-   and the tensor-core instructions in K1's and K2's SASS (cuobjdump),
-   which must be there;
+   report (K1's kernels and the sweep kernels must spill nothing, and no
+   wgmma may be serialised: no C7514), and the tensor-core instructions
+   in K1's and K2's SASS (cuobjdump), which must be there: each of the
+   12 variants of K1's int8 kernel must issue IGMMA and no IMMA;
 3. K1 (`score_rows`, csrc/score_rows.cu) against its plain PyTorch
    version on the tensors of the S=48 seed-0 case, on its int8
    tensor-core path, at B=32 (the search's population) and B=1000
@@ -22,7 +23,11 @@ and prints no result line:
    (rows that are not int8-exact); then the device times of the kernel,
    the plain version and one `torch.matmul(X, H.T)` in f32, each after
    an L2 flush, beside the least time the card could take, and the host
-   time each takes to queue a call;
+   time each takes to queue a call; on the int8 path also one
+   `torch._int_mm` per u8 plane (the int8 yardstick), and, when
+   AMBIGRAM_K1_BASELINE_SRC names an earlier K1 source with the mma.sync
+   path's C interface, that kernel, checked against K1 and timed in
+   turns beside it (phases 9, 13 and 16 the same);
 3b. the sweep kernel (`launch_sweep`, csrc/sweeps.cu, which reads the
    sparse columns of H and visits for each move only U_m, the rows its
    columns touch) against the plain sweeps (solver/sweeps.py) on seeds
@@ -141,7 +146,8 @@ and prints no result line:
    round, one sweep, no polish, no certificate): at least two K1
    launches, all on its f32 path, and an integral x inside [0, x_ub],
    and its peak device memory (its sweeps read the sparse columns, not
-   a dense 3.8 GB H.T). The S=128 tensors are released after it;
+   a dense 3.8 GB H.T), beside the peak of building the scoring tensors
+   alone. The S=128 tensors are released after it;
 21. a JSON line describing the kernels, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -344,41 +350,162 @@ def check_k1_case(label, st, X_sets, exact_kind, path):
     return worst
 
 
+def int_mm_planes(st, X, planes: int):
+    """The int8 yardstick of K1's int8 path: one `torch._int_mm` of the
+    candidates' u8 planes (as int8) with H8.T per plane, the product
+    alone (no conversion, no hinge); a function that runs them."""
+    import torch
+
+    xi = X.to(torch.int32)
+    xq = [((xi >> (8 * p)) & 255).to(torch.uint8).view(torch.int8).contiguous() for p in range(planes)]
+    H8t = st.H8.t()
+
+    def run():
+        for x8 in xq:
+            torch._int_mm(x8, H8t)
+
+    return run
+
+
 def time_k1(label, st, X_pop, path, planes: int = 1, iters: int = 20, host_iters: int = 200):
     """Times at B=32 and B=1000, each after an L2 flush: K1, its plain
     version and one torch.matmul(X, H.T) in f32 (the library call for
     the product alone), each the mean of `iters` runs, and the host time
-    to queue a call over `host_iters` calls; {B: (kernel, plain,
-    library, bound, bound_by)}."""
+    to queue a call over `host_iters` calls. On the int8 path also
+    `torch._int_mm` per plane (the int8 yardstick) and, when
+    AMBIGRAM_K1_BASELINE_SRC names an earlier K1 source, that kernel,
+    first checked against this one; in turns: plain, library, int_mm,
+    kernel, earlier kernel, earlier kernel, kernel, int_mm, library,
+    plain. {B: (kernel, plain, library, bound, bound_by, int_mm or None,
+    earlier kernel or None)}."""
     import torch
 
     from ambigram_tpu_torch.solver.score import score_rows, score_rows_plain
 
     out = {}
     warmup = min(3, iters)
+    base = previous_k1() if path == "int8" else None
     for B in (32, 1000):
         X = torch.as_tensor(X_pop[:B]).to(DEVICE)
         H = st.H
-        plain_a = cuda_ms_cold(lambda: score_rows_plain(st, X, want_hx=True), iters, warmup)
-        lib_a = cuda_ms_cold(lambda: torch.matmul(X, H.t()), iters, warmup)
-        kern_a = cuda_ms_cold(lambda: score_rows(st, X, want_hx=True), iters, warmup)
-        kern_b = cuda_ms_cold(lambda: score_rows(st, X, want_hx=True), iters, warmup)
-        lib_b = cuda_ms_cold(lambda: torch.matmul(X, H.t()), iters, warmup)
-        plain_b = cuda_ms_cold(lambda: score_rows_plain(st, X, want_hx=True), iters, warmup)
-        warm = cuda_ms(lambda: score_rows(st, X, want_hx=True), iters, warmup)
-        host_k = host_us(lambda: score_rows(st, X, want_hx=True), host_iters)
+        kernel = lambda: score_rows(st, X, want_hx=True)
+        int_mm = int_mm_planes(st, X, planes) if path == "int8" else None
+        earlier = None
+        if base is not None:
+            earlier = lambda: base(st, X, want_hx=True)
+            check_earlier_k1(label, st, X, base)
+        t = {}
+        order = ["plain", "lib", "int_mm", "kern", "base", "base", "kern", "int_mm", "lib", "plain"]
+        fns = {"plain": lambda: score_rows_plain(st, X, want_hx=True), "lib": lambda: torch.matmul(X, H.t()),
+               "int_mm": int_mm, "kern": kernel, "base": earlier}
+        for name in order:
+            if fns[name] is not None:
+                t.setdefault(name, []).append(cuda_ms_cold(fns[name], iters, warmup))
+        mean = {k: sum(v) / len(v) for k, v in t.items()}
+        warm = cuda_ms(kernel, iters, warmup)
+        host_k = host_us(kernel, host_iters)
         host_l = host_us(lambda: torch.matmul(X, H.t()), host_iters)
-        kern, plain, lib = (kern_a + kern_b) / 2, (plain_a + plain_b) / 2, (lib_a + lib_b) / 2
         bnd, by = k1_bound(st, B, 0 if path == "f32" else planes)
-        out[B] = (kern, plain, lib, bnd, by)
+        out[B] = (mean["kern"], mean["plain"], mean["lib"], bnd, by, mean.get("int_mm"), mean.get("base"))
+        extra = ""
+        if "int_mm" in t:
+            extra += ", %d x torch._int_mm %.4f ms (%.4f, %.4f)" % (planes, mean["int_mm"], *t["int_mm"])
+        if "base" in t:
+            extra += ", earlier K1 %.4f ms (%.4f, %.4f)" % (mean["base"], *t["base"])
         log(
             "k1 time %s path %s B=%d rows=%d vp=%d (device, L2 flushed): kernel %.4f ms (%.4f, %.4f; %.4f back to back), "
-            "plain %.4f ms (%.4f, %.4f), torch.matmul f32 %.4f ms (%.4f, %.4f), bound %.4f ms (%s); "
+            "plain %.4f ms (%.4f, %.4f), torch.matmul f32 %.4f ms (%.4f, %.4f)%s, bound %.4f ms (%s); "
             "host time to queue one call: kernel %.1f us, torch.matmul %.1f us"
-            % (path, label, B, st.H.shape[0], st.H.shape[1], kern, kern_a, kern_b, warm, plain, plain_a, plain_b,
-               lib, lib_a, lib_b, bnd, by, host_k, host_l)
+            % (path, label, B, st.H.shape[0], st.H.shape[1], mean["kern"], *t["kern"], warm, mean["plain"],
+               *t["plain"], mean["lib"], *t["lib"], extra, bnd, by, host_k, host_l)
         )
     return out
+
+
+def timing_fields(timing) -> dict:
+    """The kernels-line numbers of one shape from `time_k1`'s result: at
+    B=32 without a suffix, at B=1000 with `_b1000`."""
+    out = {}
+    for B, suffix in ((32, ""), (1000, "_b1000")):
+        kern, plain, lib, bnd, by, int_mm, earlier = timing[B]
+        out.update({"ms" + suffix: kern, "plain_ms" + suffix: plain, "library_ms" + suffix: lib,
+                    "bound_ms" + suffix: bnd, "bound_by" + suffix: by})
+        if int_mm is not None:
+            out["int_mm_ms" + suffix] = int_mm
+        if earlier is not None:
+            out["earlier_ms" + suffix] = earlier
+    return out
+
+
+_K1_BASELINE: list = []
+
+
+def previous_k1():
+    """An earlier K1's int8 path, built from the source that
+    AMBIGRAM_K1_BASELINE_SRC names: the mma.sync kernel with its C
+    interface (`score_rows_i8_launch` on a scratch buffer of
+    `score_rows_i8_scratch_bytes`: the u8 planes and the row tiles'
+    partials, three launches). A function (st, X, want_hx) -> (scores,
+    hx or None) that runs it, or None when the variable is unset."""
+    import ctypes
+
+    import torch
+
+    from ambigram_tpu_torch import kernels
+    from ambigram_tpu_torch.solver.score import k1_planes
+
+    if _K1_BASELINE:
+        return _K1_BASELINE[0]
+    src = os.environ.get("AMBIGRAM_K1_BASELINE_SRC")
+    if not src:
+        _K1_BASELINE.append(None)
+        return None
+    so = os.path.join(kernels.BUILD_DIR, "libk1_baseline.so")
+    if not os.path.exists(so):
+        info = kernels.build(os.path.abspath(src), so)
+        log("build: earlier K1 %s %.2f s in nvcc" % (src, info["seconds"]))
+    lib = ctypes.CDLL(so)
+    fn = lib.score_rows_i8_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    scratch_bytes = lib.score_rows_i8_scratch_bytes
+    scratch_bytes.argtypes = [ctypes.c_int] * 5
+    scratch_bytes.restype = ctypes.c_longlong
+
+    def run(st, X, want_hx=True):
+        planes = k1_planes(st)
+        cases = X.shape[0] if X.dim() == 3 else 1
+        B, vp = X.shape[-2:]
+        rows = st.H8.shape[-2]
+        scores = torch.empty(X.shape[:-1], dtype=torch.float32, device=X.device)
+        hx = torch.empty(X.shape[:-1] + (rows,), dtype=torch.float32, device=X.device) if want_hx else None
+        scratch = torch.empty(scratch_bytes(cases, B, rows, vp, planes), dtype=torch.uint8, device=X.device)
+        err = fn(st.H8.data_ptr(), st.w.data_ptr(), st.lb.data_ptr(), st.ub.data_ptr(), X.data_ptr(),
+                 scratch.data_ptr(), hx.data_ptr() if hx is not None else None, scores.data_ptr(), cases, B, rows,
+                 vp, planes, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError("earlier K1 launch failed: cudaError %d" % err)
+        return scores, hx
+
+    _K1_BASELINE.append(run)
+    return run
+
+
+def check_earlier_k1(label, st, X, base) -> None:
+    """The earlier K1 against this one on the same candidates: hx bitwise
+    equal, the scores within K1_RTOL (their row sums run in other
+    orders)."""
+    import torch
+
+    from ambigram_tpu_torch.solver.score import score_rows
+
+    s_k, hx_k = score_rows(st, X, want_hx=True)
+    s_b, hx_b = base(st, X, want_hx=True)
+    torch.cuda.synchronize()
+    rel = float(((s_k - s_b).abs() / s_b.abs().clamp(min=1.0)).max())
+    if not torch.equal(hx_k, hx_b) or rel > K1_RTOL:
+        raise AssertionError("the earlier K1 and K1 disagree (%s B=%d): hx equal %s, scores rel %g"
+                             % (label, X.shape[-2], torch.equal(hx_k, hx_b), rel))
 
 
 def check_k1(progs: dict) -> dict:
@@ -423,30 +550,7 @@ def check_k1(progs: dict) -> dict:
     f32_timing = time_k1("noise0.05 halved", st, pop, "f32")
     del st
     torch.cuda.empty_cache()
-    kern, plain, lib, bnd, by = timing[32]
-    return {
-        "max_abs_err": worst,
-        "ms": kern,
-        "plain_ms": plain,
-        "library_ms": lib,
-        "bound_ms": bnd,
-        "bound_by": by,
-        "ms_b1000": timing[1000][0],
-        "plain_ms_b1000": timing[1000][1],
-        "library_ms_b1000": timing[1000][2],
-        "f32_path": {
-            "ms": f32_timing[32][0],
-            "plain_ms": f32_timing[32][1],
-            "library_ms": f32_timing[32][2],
-            "bound_ms": f32_timing[32][3],
-            "bound_by": f32_timing[32][4],
-            "ms_b1000": f32_timing[1000][0],
-            "plain_ms_b1000": f32_timing[1000][1],
-            "library_ms_b1000": f32_timing[1000][2],
-            "bound_ms_b1000": f32_timing[1000][3],
-            "bound_by_b1000": f32_timing[1000][4],
-        },
-    }
+    return dict(timing_fields(timing), max_abs_err=worst, f32_path=timing_fields(f32_timing))
 
 
 def random_int8_prog(seed: int = 2, n: int = 10):
@@ -1124,10 +1228,7 @@ def check_k1_block(prog) -> dict:
     timing = time_k1(label, st, pop, "int8")
     del st
     torch.cuda.empty_cache()
-    kern, plain, lib, bnd, by = timing[32]
-    return {"max_abs_err": err, "ms": kern, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
-            "bound_by": by, "ms_b1000": timing[1000][0], "plain_ms_b1000": timing[1000][1],
-            "library_ms_b1000": timing[1000][2]}
+    return dict(timing_fields(timing), max_abs_err=err)
 
 
 @contextlib.contextmanager
@@ -1313,10 +1414,7 @@ def check_k1_two_planes(workdir: str) -> dict:
         err = check_k1_case(label, st, {"population": pop}, "population" if noise == 0.0 else None, "int8")
         if noise > 0.0:
             timing = time_k1(label, st, pop, "int8", planes=2)
-            kern, plain, lib, bnd, by = timing[32]
-            out = {"max_abs_err": err, "ms": kern, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
-                   "bound_by": by, "ms_b1000": timing[1000][0], "plain_ms_b1000": timing[1000][1],
-                   "library_ms_b1000": timing[1000][2], "bound_ms_b1000": timing[1000][3], "planes": planes}
+            out = dict(timing_fields(timing), max_abs_err=err, planes=planes)
         del st
         torch.cuda.empty_cache()
     return out
@@ -1487,18 +1585,31 @@ def check_sharded_step(workdir: str) -> dict:
     if rel > K1_RTOL:
         raise AssertionError("K1 on the row shard is off its plain version by rel %g" % rel)
     H = shard.H[0]
-    kern = cuda_ms(lambda: score_rows(shard, cand), iters=10)
-    plain = cuda_ms(lambda: score_rows_plain(shard, cand), iters=10)
-    lib = cuda_ms(lambda: torch.matmul(cand[0], H.t()), iters=10)
+    base = previous_k1()
+    if base is not None:
+        check_earlier_k1("row shard", shard, cand, base)
+    fns = {"plain": lambda: score_rows_plain(shard, cand), "lib": lambda: torch.matmul(cand[0], H.t()),
+           "int_mm": int_mm_planes(shard.case(0), cand[0], 1), "kern": lambda: score_rows(shard, cand),
+           "base": (lambda: base(shard, cand, want_hx=False)) if base is not None else None}
+    t = {}
+    for name in ("plain", "lib", "int_mm", "kern", "base", "base", "kern", "int_mm", "lib", "plain"):
+        if fns[name] is not None:
+            t.setdefault(name, []).append(cuda_ms(fns[name], iters=10))
+    mean = {k: sum(v) / len(v) for k, v in t.items()}
     bnd, by = k1_bound(shard, B, 1, want_hx=False)
-    log("k1 row shard B=%d rows=%d vp=%d: scores %s (max_abs_err %r); kernel %.4f ms, plain %.4f ms, "
-        "torch.matmul f32 %.4f ms, bound %.4f ms (%s)"
-        % (B, H.shape[0], vp, "bitwise equal" if torch.equal(s_k, s_p) else "rel %.3g" % rel, shard_err, kern, plain,
-           lib, bnd, by))
-    del cand, s_k, s_p
+    log("k1 row shard B=%d rows=%d vp=%d: scores %s (max_abs_err %r); kernel %.4f ms %s, plain %.4f ms %s, "
+        "torch.matmul f32 %.4f ms %s, torch._int_mm %.4f ms %s%s, bound %.4f ms (%s)"
+        % (B, H.shape[0], vp, "bitwise equal" if torch.equal(s_k, s_p) else "rel %.3g" % rel, shard_err,
+           mean["kern"], t["kern"], mean["plain"], t["plain"], mean["lib"], t["lib"], mean["int_mm"], t["int_mm"],
+           ", earlier K1 %.4f ms %s" % (mean["base"], t["base"]) if "base" in t else "", bnd, by))
+    del cand, s_k, s_p, fns
     torch.cuda.empty_cache()
-    return {"max_abs_err": max(err, shard_err), "ms": kern, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
-            "bound_by": by, "shape": [1, B, H.shape[0], vp]}
+    out = {"max_abs_err": max(err, shard_err), "ms": mean["kern"], "plain_ms": mean["plain"],
+           "library_ms": mean["lib"], "int_mm_ms": mean["int_mm"], "bound_ms": bnd, "bound_by": by,
+           "shape": [1, B, H.shape[0], vp]}
+    if "base" in mean:
+        out["earlier_ms"] = mean["base"]
+    return out
 
 
 def proxy_programs(workdir: str):
@@ -1691,10 +1802,7 @@ def check_k1_s128(progs: dict) -> dict:
         err = check_k1_case(label, st, {"population": pop}, "population" if noise == 0.0 else None, "f32")
         if noise > 0.0:
             t = time_k1(label, st, pop, "f32", iters=5, host_iters=10)
-            out = {"max_abs_err": err, "ms": t[32][0], "plain_ms": t[32][1], "library_ms": t[32][2],
-                   "bound_ms": t[32][3], "bound_by": t[32][4], "ms_b1000": t[1000][0],
-                   "plain_ms_b1000": t[1000][1], "library_ms_b1000": t[1000][2], "bound_ms_b1000": t[1000][3],
-                   "bound_by_b1000": t[1000][4], "shape": [st.H.shape[0], st.H.shape[1]]}
+            out = dict(timing_fields(t), max_abs_err=err, shape=[st.H.shape[0], st.H.shape[1]])
         del st
         torch.cuda.empty_cache()
     return out
@@ -1710,10 +1818,23 @@ def run_s128_search(prog) -> dict:
     import numpy as np
     import torch
 
-    from ambigram_tpu_torch.solver.score import reset_launch_counts, score_rows
+    from ambigram_tpu_torch.solver.score import reset_launch_counts, score_rows, scoring_tensors
     from ambigram_tpu_torch.solver.search import solve_device
     from ambigram_tpu_torch.utils.profiling import GLOBAL
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    st = scoring_tensors(prog, DEVICE)
+    torch.cuda.synchronize()
+    tensors_peak = torch.cuda.max_memory_allocated() - before
+    held = torch.cuda.memory_allocated() - before
+    log("s128 tensors: %.3f s to build, peak %d bytes (%.3f GB) above the %.3f GB allocated before, %.3f GB held "
+        "(H %.3f GB, H8 %.3f GB)" % (time.perf_counter() - t0, tensors_peak, tensors_peak / 1e9, before / 1e9,
+                                     held / 1e9, st.H.numel() * 4 / 1e9, st.H8.numel() / 1e9))
+    del st
+    torch.cuda.empty_cache()
     GLOBAL.reset()
     reset_launch_counts()
     torch.cuda.synchronize()
@@ -1742,7 +1863,8 @@ def run_s128_search(prog) -> dict:
     if sweeps < 1:
         raise AssertionError("the S=128 search never launched the sweep kernel")
     return {"launches": launches, "int8_launches": int8_launches, "f32_launches": f32_launches,
-            "sweep_launches": sweeps, "wall": wall, "hard_violation": vio, "peak_bytes": peak}
+            "sweep_launches": sweeps, "wall": wall, "hard_violation": vio, "peak_bytes": peak,
+            "tensors_peak_bytes": tensors_peak}
 
 
 def check_s128(workdir: str) -> tuple:
@@ -1759,20 +1881,27 @@ def check_s128(workdir: str) -> tuple:
     return k1, search
 
 
-def sass_counts(path: str) -> dict:
+def sass_counts(path: str, by_function: bool = False) -> dict:
     """Tensor-core instructions in a library's SASS (cuobjdump), by
     mnemonic: IMMA is mma.sync on integers, [HIQ]GMMA the warpgroup
-    products."""
+    products; with `by_function`, {function: counts}."""
     import re
 
     from ambigram_tpu_torch import kernels
 
     tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True, check=True, timeout=300).stdout
-    counts: dict = {}
-    for op in re.findall(r"\b([A-Z]*GMMA|IMMA)\b", sass):
-        counts[op] = counts.get(op, 0) + 1
-    return counts
+
+    def count(text: str) -> dict:
+        counts: dict = {}
+        for op in re.findall(r"\b([A-Z]*GMMA|IMMA)\b", text):
+            counts[op] = counts.get(op, 0) + 1
+        return counts
+
+    if not by_function:
+        return count(sass)
+    parts = sass.split("Function : ")[1:]
+    return {part.split("\n", 1)[0].strip(): count(part) for part in parts}
 
 
 def ptxas_spills(report: str) -> dict:
@@ -1795,26 +1924,37 @@ def build_kernels() -> None:
     from ambigram_tpu_torch.solver.sweeps import _library as _sweeps_library
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        for fut in [pool.submit(_k1_library), pool.submit(_k2_library), pool.submit(_sweeps_library)]:
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        jobs = [pool.submit(_k1_library), pool.submit(_k2_library), pool.submit(_sweeps_library)]
+        jobs.append(pool.submit(previous_k1))  # the earlier K1, when AMBIGRAM_K1_BASELINE_SRC names one
+        for fut in jobs:
             fut.result()
-    log("build: %.2f s for the three kernels" % (time.perf_counter() - t0))
-    for name, wanted in (("score_rows", ("IMMA",)), ("chained_score", ("IGMMA", "HGMMA")), ("sweeps", ())):
+    log("build: %.2f s for the kernels" % (time.perf_counter() - t0))
+    for name, wanted in (("score_rows", ("IGMMA",)), ("chained_score", ("IGMMA", "HGMMA")), ("sweeps", ())):
         info = kernels.BUILD_INFO[name]
         log("build: %s %.2f s in nvcc" % (name, info["seconds"]))
         if info["log"]:
             log(info["log"])
+        if "C7514" in info["log"]:
+            raise AssertionError("ptxas serialised the wgmma of %s (C7514)" % name)
         if name in ("score_rows", "sweeps"):
-            tag = "score_rows_f32" if name == "score_rows" else "sweep_"
+            tag = "score_rows_" if name == "score_rows" else "sweep_"
             found = {fn: v for fn, v in ptxas_spills(info["log"]).items() if tag in fn}
             if not found or any(v != (0, 0) for v in found.values()):
                 raise AssertionError("%s's kernels spill or are missing from ptxas's report: %r" % (name, found))
-            log("ptxas: %s's %d %s kernels spill nothing" % (name, len(found), tag.rstrip("_")))
+            log("ptxas: %s's %d kernels spill nothing" % (name, len(found)))
         if wanted:
             counts = sass_counts(info["path"])
             log("sass: %s tensor-core instructions %s" % (name, json.dumps(counts, sort_keys=True)))
             if not any(counts.get(op) for op in wanted):
                 raise AssertionError("no %s in the SASS of %s" % (" or ".join(wanted), name))
+        if name == "score_rows":
+            i8 = {fn: ops for fn, ops in sass_counts(info["path"], by_function=True).items() if "score_rows_i8" in fn}
+            bad = [fn for fn, ops in i8.items() if not ops.get("IGMMA") or ops.get("IMMA")]
+            if len(i8) != 12 or bad:
+                raise AssertionError("K1's int8 variants: %d built, without IGMMA or with IMMA: %r" % (len(i8), bad))
+            log("sass: all %d of K1's int8 variants issue IGMMA (%s a variant) and no IMMA"
+                % (len(i8), sorted({ops["IGMMA"] for ops in i8.values()})))
 
 
 def main() -> int:
@@ -1891,6 +2031,7 @@ def main() -> int:
                 "by_kind": sweeps["by_kind"],
                 "programs": sweep_stats,
                 "s128_search_peak_bytes": s128_search["peak_bytes"],
+                "s128_tensors_peak_bytes": s128_search["tensors_peak_bytes"],
             },
             {
                 "name": "score_rows",
@@ -1906,9 +2047,9 @@ def main() -> int:
                 "bound_by": k1["bound_by"],
                 "library_ms": k1["library_ms"],
                 "int8_launches": sum(r["int8_launches"] for r in main_paths),
-                "ms_b1000": k1["ms_b1000"],
-                "plain_ms_b1000": k1["plain_ms_b1000"],
-                "library_ms_b1000": k1["library_ms_b1000"],
+                "int8_kernel": "wgmma m64nNk32 .s8.u8, H8 by TMA, one launch a call",
+                **{k: v for k, v in k1.items() if k.startswith(("int_mm_ms", "earlier_ms", "bound_ms_", "bound_by_",
+                                                                "ms_b", "plain_ms_b", "library_ms_b"))},
                 "f32_path": dict(k1["f32_path"], s128=k1_s128, launches=s128_search["f32_launches"]),
                 "sc_block": k1_block,
                 "big_s96": k1_big,
@@ -1926,6 +2067,8 @@ def main() -> int:
                 "bound_ms": step["bound_ms"],
                 "bound_by": step["bound_by"],
                 "library_ms": step["library_ms"],
+                "int_mm_ms": step["int_mm_ms"],
+                **({"earlier_ms": step["earlier_ms"]} if "earlier_ms" in step else {}),
                 "shape": step["shape"],
                 "wall_s": {"sharded_solves": proxy["wall"], "mesh_batch": mesh_batch["wall"]},
             },

@@ -987,3 +987,177 @@ def test_card_descent_never_reads_the_dense_columns(cuda_device, tmp_path, monke
     assert tuple(got[3:]) == tuple(want[3:])
     for a, b in zip(got[:3], want[:3]):
         assert torch.equal(a.cpu(), b)
+
+
+# ------------------------------------------------ K1's int8 path (wgmma)
+
+
+def int8_tensors(device, rows, vp, G=1, x_ub_max=3.0, seed=0, noisy=False):
+    """Random int8-exact scoring tensors of any shape: sparse H8 in
+    [-2, 2], hinge weights in {0, 0.5, 1, 1024} (0 as on padding rows),
+    integer row bounds near the row values of small candidates (open on
+    some rows), so every hinge term is a small multiple of 0.5 and every
+    score an exact f32 sum; with a box past 255 (two planes, whose large
+    values reach 600 in a row value) the rows weighted 1024 are open, so
+    the scores stay below 2^23. `noisy` adds fractional parts to the
+    bounds.
+    With G > 1 every leaf has a leading case axis, as `stack_cases`
+    builds it."""
+    from ambigram_tpu_torch.solver.score import _BIG, _expand_f32
+
+    rng = np.random.default_rng(seed)
+    shape = (G, rows) if G > 1 else (rows,)
+    H8 = rng.choice(np.array([-2, -1, 1, 2], dtype=np.int8), size=shape + (vp,))
+    H8 *= (rng.random(shape + (vp,)) < 0.02).astype(np.int8)
+    w = rng.choice(np.array([0.0, 0.5, 1.0, 1024.0], dtype=np.float32), size=shape, p=[0.1, 0.3, 0.55, 0.05])
+    lb_raw = rng.integers(-2, 6, size=shape).astype(np.float32)
+    ub_raw = lb_raw + rng.integers(0, 3, size=shape).astype(np.float32)
+    hard = w == 1024.0
+    lb_raw[hard], ub_raw[hard] = 0.0, 4.0
+    opened = (rng.random(shape) < 0.1) | (hard & (x_ub_max > 255))
+    lb_raw[opened], ub_raw[opened] = -_BIG, _BIG
+    if noisy:
+        frac = rng.random(shape).astype(np.float32) * 0.9
+        lb_raw = np.where(opened | hard, lb_raw, lb_raw + frac).astype(np.float32)
+        ub_raw = np.where(opened | hard, ub_raw, ub_raw + frac).astype(np.float32)
+    t = lambda a: torch.as_tensor(a).to(device)
+    H8t, lbr, ubr, wt = t(H8), t(lb_raw), t(ub_raw), t(w)
+    H, lb, ub = _expand_f32(H8t, lbr, ubr, wt)
+    x_ub = torch.full(shape[:-1] + (vp,), float(x_ub_max), dtype=torch.float32, device=device)
+    return ScoringTensors(H=H, lb=lb, ub=ub, x_ub=x_ub, H8=H8t, lb_raw=lbr, ub_raw=ubr, w=wt, num_vars=vp,
+                          num_residual_rows=rows, int8_ok=True, x_ub_max=float(x_ub_max))
+
+
+def int8_candidates(device, G, B, vp, planes, seed=1):
+    """Small sparse candidates in [0, 3]; with two planes each also holds
+    one value in [256, 300], so both bytes carry."""
+    rng = np.random.default_rng(seed)
+    X = (rng.integers(0, 4, size=(G, B, vp)) * (rng.random((G, B, vp)) < 0.1)).astype(np.float32)
+    if planes == 2:
+        X[:, np.arange(B), rng.integers(0, vp, size=B)] = rng.integers(256, 301, size=(G, B))
+    return torch.as_tensor(X if G > 1 else X[0]).to(device)
+
+
+def check_k1_int8(st, X, want_hx, exact=True):
+    """One launch of K1's int8 path against its plain version (bitwise on
+    integer targets, rel 1e-5 otherwise) and against the CPU mirror of
+    its arithmetic and summation order (bitwise, noisy targets too)."""
+    from ambigram_tpu_torch.solver.score import score_rows_int8_plain
+
+    before, before_i8 = score_rows.launches, score_rows.int8_launches
+    s_k, hx_k = score_rows(st, X, want_hx=want_hx)
+    assert score_rows.launches == before + 1 and score_rows.int8_launches == before_i8 + 1
+    s_p, hx_p = score_rows_plain(st, X, want_hx=True)
+    torch.cuda.synchronize()
+    if want_hx:
+        assert torch.equal(hx_k, hx_p)
+    else:
+        assert hx_k is None
+    if exact:
+        assert float(s_p.max()) < 2.0**23
+        assert torch.equal(s_k, s_p)
+    else:
+        assert float(((s_k - s_p).abs() / s_p.abs().clamp(min=1.0)).max()) <= 1e-5
+    s_m, _ = score_rows_int8_plain(st.to("cpu"), X.cpu())
+    assert torch.equal(s_k.cpu(), s_m)
+    return s_k, hx_k
+
+
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("want_hx", [True, False])
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("B", [1, 31, 32, 33, 1000])
+def test_k1_int8_wgmma_matches_plain(cuda_device, B, planes, want_hx, G):
+    """K1's int8 path (one wgmma launch) at the search's and the large
+    batches, one and two planes, with and without hx, one case and a
+    case axis of 8 (each case bitwise equal to its own launch)."""
+    rows, vp = 1536, 1152
+    st = int8_tensors(cuda_device, rows, vp, G=G, x_ub_max=3.0 if planes == 1 else 300.0, seed=B + 7 * planes)
+    assert k1_planes(st) == planes
+    X = int8_candidates(cuda_device, G, B, vp, planes, seed=B)
+    s_k, hx_k = check_k1_int8(st, X, want_hx)
+    if G > 1:
+        for g in (0, G - 1):
+            s_g, hx_g = score_rows(st.case(g), X[g].contiguous(), want_hx=want_hx)
+            assert torch.equal(s_g, s_k[g])
+            if want_hx:
+                assert torch.equal(hx_g, hx_k[g])
+
+
+@pytest.mark.parametrize("B", [32, 33, 1000])
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("rows, vp", [(1344, 576), (64, 64), (8256, 2432)])
+def test_k1_int8_ragged_rows_and_vp(cuda_device, rows, vp, planes, B):
+    """Rows and Vp that are 64 more than a multiple of 128 (a half TMA
+    box past the edge, zero-filled), the smallest shape, and S=48's
+    width with one ragged row tile."""
+    st = int8_tensors(cuda_device, rows, vp, x_ub_max=3.0 if planes == 1 else 300.0, seed=rows + B)
+    assert k1_planes(st) == planes
+    check_k1_int8(st, int8_candidates(cuda_device, 1, B, vp, planes, seed=vp + B), want_hx=True)
+
+
+@pytest.mark.parametrize("B, rows, vp, planes, G, variant", [
+    (1000, 1024, 3328, 1, 1, ("cands", False, 16)),  # candidate-stationary, 32 a block
+    (1000, 1024, 2432, 1, 1, ("cands", False, 32)),  # 64 a block
+    (1000, 1024, 1152, 1, 1, ("cands", False, 64)),  # 128 a block
+    (1000, 1024, 1664, 2, 1, ("cands", False, 32)),  # two planes: 32 a block
+    (1000, 1024, 1152, 2, 1, ("cands", False, 64)),
+    (1000, 1024, 640, 2, 1, ("cands", False, 128)),
+    (32, 2048, 640, 1, 8, ("rows", True, 32)),  # row-streaming, two row tiles a block
+    (64, 2048, 640, 1, 1, ("rows", True, 64)),
+    (32, 2048, 640, 2, 8, ("rows", True, 64)),
+    (64, 2048, 640, 2, 1, ("rows", True, 128)),
+    (32, 2048, 640, 1, 1, ("rows", False, 16)),  # row-streaming, two halves of the candidates
+    (32, 2048, 640, 2, 2, ("rows", False, 32)),
+])
+def test_k1_int8_every_instantiation(cuda_device, B, rows, vp, planes, G, variant):
+    """Each of the kernel's twelve built variants (loop order x
+    candidates a warpgroup x planes) once, through the plan that picks
+    it, bitwise against plain."""
+    from ambigram_tpu_torch.solver.score import k1_int8_plan
+
+    plan = k1_int8_plan(B, rows, vp, planes, G)
+    assert (plan.order, plan.split_rows, plan.nw) == variant
+    st = int8_tensors(cuda_device, rows, vp, G=G, x_ub_max=3.0 if planes == 1 else 300.0, seed=vp + rows)
+    check_k1_int8(st, int8_candidates(cuda_device, G, B, vp, planes, seed=B + rows), want_hx=True)
+
+
+@pytest.mark.parametrize("planes", [1, 2])
+def test_k1_int8_noisy_targets_follow_the_mirror(cuda_device, planes):
+    """Fractional row bounds (the noisy cases): the scores within rel
+    1e-5 of plain, and bitwise equal to the mirror of the kernel's
+    summation order, in both loop orders and with split rows."""
+    for B, rows, vp, G in ((32, 2048, 1152, 1), (1000, 2048, 1152, 1), (32, 1536, 640, 4)):
+        st = int8_tensors(cuda_device, rows, vp, G=G, x_ub_max=3.0 if planes == 1 else 300.0, seed=B, noisy=True)
+        check_k1_int8(st, int8_candidates(cuda_device, G, B, vp, planes, seed=rows), want_hx=True, exact=False)
+
+
+def test_k1_int8_on_a_row_shard(cuda_device):
+    """The sharded step's row-shard launch: 73,760 candidates against
+    1920 rows x 1152 (candidate-stationary, one block walking every row
+    of its 128 candidates), bitwise against plain; then the same call
+    again on the stream (the tickets are left at zero)."""
+    from ambigram_tpu_torch.solver.score import k1_int8_plan
+
+    rows, vp, B = 1920, 1152, 73760
+    st = int8_tensors(cuda_device, rows, vp, seed=11)
+    assert k1_int8_plan(B, rows, vp, 1).direct
+    X = int8_candidates(cuda_device, 1, B, vp, 1, seed=12)
+    s_k, _ = check_k1_int8(st, X, want_hx=False)
+    s_again, _ = score_rows(st, X)
+    assert torch.equal(s_again, s_k)
+
+
+def test_k1_int8_splits_reuse_the_tickets(cuda_device):
+    """Launches whose rows are split between blocks (the last block of
+    a candidate tile sums the partials) many times over on one stream,
+    and on a second stream: every result bitwise the first."""
+    st = int8_tensors(cuda_device, 8192, 640, seed=3)
+    X = int8_candidates(cuda_device, 1, 1000, 640, 1, seed=4)
+    s0, _ = check_k1_int8(st, X, want_hx=False)
+    outs = [score_rows(st, X)[0] for _ in range(20)]
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        outs += [score_rows(st, X)[0] for _ in range(5)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, s0) for o in outs)
