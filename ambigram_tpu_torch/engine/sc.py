@@ -20,7 +20,10 @@ meaning line for line. Where the port differs:
 - `run_sc_bfb` solves each block program with the port's
   `pipeline._solve(sc_prog, solver, device)`, timed under the `solve`
   phase, and each clone's replay under the `replay` phase, as the
-  port's `run_bfb` times its own;
+  port's `run_bfb` times its own; its parsing (the clones' genomes, the
+  evolution edges, the props) runs under the `parse` phase and each
+  chromosome's program build under `program_build`, as do those of
+  `extract_sc_programs`;
 - `run_sc_bfb_many` solves all block programs with the port's
   `solve_programs_batch(flat, index, solver=solver, device=device,
   mesh=mesh)`, which case-stacks same-interval block programs into one search.
@@ -199,45 +202,47 @@ def extract_sc_programs(
     pipeline.solve_programs_batch and replays with `presolved`."""
     names = [s for s in lh_paths.split(",") if s]
     genomes: List[Genome] = []
-    for name in names:
-        g = Genome.from_lh(name)
-        g.calculate_hap_depth()
-        g.calculate_copy_num()
-        genomes.append(g)
-    evolution = parse_evolution_edges(edges, names)
+    with GLOBAL.phase("parse"):
+        for name in names:
+            g = Genome.from_lh(name)
+            g.calculate_hap_depth()
+            g.calculate_copy_num()
+            genomes.append(g)
+        evolution = parse_evolution_edges(edges, names)
     g0 = genomes[0]
     out: List[Optional[BfbProgram]] = []
     for n in range(len(g0.sources)):
         start_id = g0.sources[n].id
         end_id = g0.sinks[n].id
-        _, junc_cn0 = get_junc_cn(g0, start_id, end_id)
-        if abs(float(junc_cn0[: end_id + 1, 1].sum())) < 1e-6:
-            out.append(None)
-            continue
-        progs = []
-        for g in genomes:
-            _, junc_cn = get_junc_cn(g, start_id, end_id)
-            seg_cn = np.array(
-                [
+        with GLOBAL.phase("program_build"):
+            _, junc_cn0 = get_junc_cn(g0, start_id, end_id)
+            if abs(float(junc_cn0[: end_id + 1, 1].sum())) < 1e-6:
+                out.append(None)
+                continue
+            progs = []
+            for g in genomes:
+                _, junc_cn = get_junc_cn(g, start_id, end_id)
+                seg_cn = np.array(
+                    [
+                        g.segment_by_id(i).weight.copy_num
+                        for i in range(start_id, end_id + 1)
+                    ]
+                )
+                max_cn = sum(
                     g.segment_by_id(i).weight.copy_num
                     for i in range(start_id, end_id + 1)
-                ]
-            )
-            max_cn = sum(
-                g.segment_by_id(i).weight.copy_num
-                for i in range(start_id, end_id + 1)
-            )
-            progs.append(
-                build_bfb_program(
-                    start_id,
-                    end_id,
-                    seg_cn,
-                    junc_cn[start_id : end_id + 1, 1],
-                    max_cn,
-                    0,
                 )
-            )
-        out.append(build_sc_program(progs, evolution))
+                progs.append(
+                    build_bfb_program(
+                        start_id,
+                        end_id,
+                        seg_cn,
+                        junc_cn[start_id : end_id + 1, 1],
+                        max_cn,
+                        0,
+                    )
+                )
+            out.append(build_sc_program(progs, evolution))
     return out
 
 
@@ -408,23 +413,24 @@ def run_sc_bfb(
         out = _io.StringIO()
     names = [s for s in lh_paths.split(",") if s]
     genomes: List[Genome] = []
-    for name in names:
-        g = Genome.from_lh(name)
-        g.calculate_hap_depth()
-        g.calculate_copy_num()
-        genomes.append(g)
-    K = len(genomes)
-    # evolution DAG: user-supplied edges, else all-pairs default
-    evolution = parse_evolution_edges(edges, names)
+    with GLOBAL.phase("parse"):
+        for name in names:
+            g = Genome.from_lh(name)
+            g.calculate_hap_depth()
+            g.calculate_copy_num()
+            genomes.append(g)
+        K = len(genomes)
+        # evolution DAG: user-supplied edges, else all-pairs default
+        evolution = parse_evolution_edges(edges, names)
 
-    g0 = genomes[0]
-    props = parse_bfb_props(lh_paths)  # comma-joined name: degrades to empty
+        g0 = genomes[0]
+        props = parse_bfb_props(lh_paths)  # comma-joined name: degrades to empty
 
-    sources = list(g0.sources)
-    sinks = list(g0.sinks)
-    for i, (src, snk) in enumerate(zip(sources, sinks)):
-        for seg_id in range(src.id, snk.id + 1):
-            g0.segment_by_id(seg_id).partition = i
+        sources = list(g0.sources)
+        sinks = list(g0.sinks)
+        for i, (src, snk) in enumerate(zip(sources, sinks)):
+            for seg_id in range(src.id, snk.id + 1):
+                g0.segment_by_id(seg_id).partition = i
 
     result = ScBfbResult(genomes=genomes)
     result.paths = [[] for _ in range(K)]
@@ -432,37 +438,40 @@ def run_sc_bfb(
     for n in range(len(sources)):
         start_id = sources[n].id
         end_id = sinks[n].id
-        inversions0, junc_cn0 = get_junc_cn(g0, start_id, end_id)
-        for g in genomes:
-            get_indel_bias(g, start_id, end_id)
+        with GLOBAL.phase("program_build"):
+            inversions0, junc_cn0 = get_junc_cn(g0, start_id, end_id)
+            for g in genomes:
+                get_indel_bias(g, start_id, end_id)
 
-        inversion_cn_sum = float(junc_cn0[: end_id + 1, 1].sum())
-        if abs(inversion_cn_sum) < 1e-6:
+            inversion_cn_sum = float(junc_cn0[: end_id + 1, 1].sum())
+            trivial = abs(inversion_cn_sum) < 1e-6
+            if not trivial:
+                progs = []
+                for g in genomes:
+                    _, junc_cn = get_junc_cn(g, start_id, end_id)
+                    seg_cn = np.array(
+                        [g.segment_by_id(i).weight.copy_num for i in range(start_id, end_id + 1)]
+                    )
+                    max_cn = sum(
+                        g.segment_by_id(i).weight.copy_num for i in range(start_id, end_id + 1)
+                    )
+                    progs.append(
+                        build_bfb_program(
+                            start_id,
+                            end_id,
+                            seg_cn,
+                            junc_cn[start_id : end_id + 1, 1],
+                            max_cn,
+                            0,
+                        )
+                    )
+                sc_prog = build_sc_program(progs, evolution)
+        if trivial:
             for k, g in enumerate(genomes):
                 path = [g.segment_by_id(i).pos for i in range(start_id, end_id + 1)]
                 result.paths[k].append(path)
             continue
 
-        progs = []
-        for g in genomes:
-            _, junc_cn = get_junc_cn(g, start_id, end_id)
-            seg_cn = np.array(
-                [g.segment_by_id(i).weight.copy_num for i in range(start_id, end_id + 1)]
-            )
-            max_cn = sum(
-                g.segment_by_id(i).weight.copy_num for i in range(start_id, end_id + 1)
-            )
-            progs.append(
-                build_bfb_program(
-                    start_id,
-                    end_id,
-                    seg_cn,
-                    junc_cn[start_id : end_id + 1, 1],
-                    max_cn,
-                    0,
-                )
-            )
-        sc_prog = build_sc_program(progs, evolution)
         if emit_lp:
             # mirror of BFB_ILP_SC's artifact (LGM.cpp:5091-5092)
             from ambigram_tpu_torch.io.program_io import write_lp, write_mps

@@ -1,6 +1,6 @@
 """Walls of the device search's main paths on one card.
 
-    python -m ambigram_tpu_torch.scripts.search_walls [--legs slice,manifest,batch16] [--label NAME] [--trace]
+    python -m ambigram_tpu_torch.scripts.search_walls [--legs slice,manifest,batch16] [--label NAME]
 
 Each leg goes through the entry points a user calls, on cuda:
 
@@ -13,10 +13,7 @@ Each leg goes through the entry points a user calls, on cuda:
 It prints one JSON line per leg: the wall, the `score` phase (the device
 search; summed over threads where groups search at once), the other
 phases, the sweep counts and the eps, beside the card's name and power
-limit. With `--trace` each leg runs under torch.profiler and its line
-adds the device's busy time (the sum of the kernels' device time, which
-overlapping streams would count twice), its share of the traced wall,
-and the kernels that took the most device time.
+limit.
 
 It uses only functions that every tree of the port since its batch path
 has (the CLI's `run`, `bench.batch_case_paths`, `bench.batch_device_leg`,
@@ -92,37 +89,12 @@ def leg_batch16(workdir: str) -> dict:
     return bench.batch_device_leg(bench.batch_case_paths(workdir, n_cases=16))
 
 
-def traced(fn, workdir: str) -> dict:
-    """`fn(workdir)` under torch.profiler: its output, plus the device's
-    busy time and share of the traced wall and the top kernels by device
-    time ("not measured" when the trace holds no device time)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn(workdir)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    out["trace"] = {
-        "traced_wall_s": round(wall, 3),
-        "device_busy_s": round(busy_us / 1e6, 4) if busy_us else "not measured",
-        "device_busy_share": round(busy_us / 1e6 / wall, 4) if busy_us else "not measured",
-        "top_kernels_ms": {e.key[:60]: [round(e.self_device_time_total / 1e3, 3), e.count] for e in top},
-    }
-    return out
-
-
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--legs", default="slice,manifest", help="comma-separated, of %s" % ",".join(LEGS))
     ap.add_argument("--label", default="", help="a name for this tree in the output lines")
-    ap.add_argument("--trace", action="store_true", help="run each leg under torch.profiler")
     args = ap.parse_args(argv)
     legs = [leg for leg in args.legs.split(",") if leg]
     if any(leg not in LEGS for leg in legs):
@@ -137,10 +109,7 @@ def main(argv=None) -> int:
     for leg in legs:
         workdir = tempfile.mkdtemp(prefix="search_walls_")
         try:
-            if args.trace:
-                out = traced(fns[leg], workdir)
-            else:
-                out = fns[leg](workdir)
+            out = fns[leg](workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         print(json.dumps({"leg": leg, "label": args.label, "card": card, **out}), flush=True)

@@ -2,9 +2,12 @@
 
 A copy of ambigram_tpu/solver/lns.py for the PyTorch port: `lns_polish`
 for the search's host tail and `cut_repair` for the replay's face retry
-(engine/pipeline.py). Its one difference: `lns_polish` takes
+(engine/pipeline.py). Its differences: `lns_polish` takes
 `eps_quantum` from ambigram_tpu_torch.solver.host, because the original
-imports it from ambigram_tpu/solver/search.py, which imports jax.
+imports it from ambigram_tpu/solver/search.py, which imports jax; and
+it counts, in the profiler's counters, every neighbourhood it solves
+(`lns.neighbourhoods`) and every one whose result it accepts
+(`lns.improved`).
 
 The device search (ambigram_tpu_torch.solver.search) is the throughput path,
 but its move neighborhood is local: on noisy profiles at S >= 32 it
@@ -39,6 +42,7 @@ import numpy as np
 
 from ambigram_tpu_torch.engine.ilp import BfbProgram
 from ambigram_tpu_torch.solver.exact import have_exact_solver, milp_lad
+from ambigram_tpu_torch.utils.profiling import GLOBAL
 
 
 def _num_blocks(prog: BfbProgram) -> int:
@@ -163,8 +167,6 @@ def _solve_window(
         sub_lb = np.zeros(0)
         sub_ub = np.zeros(0)
     import time as _time
-
-    from ambigram_tpu_torch.utils.profiling import GLOBAL
 
     t0 = _time.perf_counter()
     if screen_margin is not None:
@@ -487,6 +489,7 @@ def lns_polish(
         if seen.get(key) == version:
             return False  # x unchanged since this neighborhood was solved
         seen[key] = version
+        GLOBAL.count("lns.neighbourhoods")
         x_new = _solve_window(
             A_res, c_res, G, g_lb, g_ub, prog.x_ub, x, ax, gx, free, budget,
             screen_margin=screen_margin if vio == 0.0 else None,
@@ -498,6 +501,7 @@ def lns_polish(
             x, vio, eps = x_new, vio_new, eps_new
             version += 1
             refresh()
+            GLOBAL.count("lns.improved")
             return True
         return False
 

@@ -20,6 +20,11 @@ JAX one after its first kick; its quality is what the tests compare.
 The full rescorings of a round, at the start and after each kick, go
 through `score_rows`: the hand-written CUDA kernel K1 on a card (one
 launch for a whole case-stacked group), its plain version on the CPU.
+
+Unlike the original, the host tail times its measurement of the
+incumbent (eps, violation, certified target) under the phase
+`solve.measure`: a program's first `hard_violation` lifts its G to
+float there.
 """
 
 from __future__ import annotations
@@ -368,10 +373,11 @@ def _finish_solution(
     goes straight to the full polish."""
     from ambigram_tpu_torch.solver.lns import lns_polish
 
-    x_int = np.round(x).astype(np.int64)
-    eps_sum = float(prog.residual_objective(x_int.astype(np.float64)))
-    violation = float(prog.hard_violation(x_int.astype(np.float64)))
-    tgt = certified_bound(prog, lb) if lb is not None else None
+    with GLOBAL.phase("solve.measure"):
+        x_int = np.round(x).astype(np.int64)
+        eps_sum = float(prog.residual_objective(x_int.astype(np.float64)))
+        violation = float(prog.hard_violation(x_int.astype(np.float64)))
+        tgt = certified_bound(prog, lb) if lb is not None else None
     if polish and (violation > 0.0 or (eps_sum > 0.0 and (tgt is None or eps_sum > tgt + 1e-6))):
         with GLOBAL.phase("solve.lns"):
             if violation > 0.0 or not converged:

@@ -791,6 +791,47 @@ def test_sweep_kernel_tie_order(cuda_device, kind):
         assert float(got[0][0, var]) == value, (kind, var)
 
 
+def test_phase_span_holds_its_sweep_kernel_on_the_traces_clock(cuda_device, tmp_path):
+    """Under the benchmark's profiler settings, a phase span around one
+    sweep launch and a synchronize holds each of that launch's kernels,
+    where the exported trace puts them, within 50 us."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ambigram_tpu_torch.solver import sweeps
+    from ambigram_tpu_torch.utils.profiling import Profiler
+
+    st, X, hx, scores, moves, moves3 = tie_tensors(cuda_device)
+    sweeps.sweep_kernel("delta", st, X, hx, scores)
+    torch.cuda.synchronize()
+    prof = Profiler()
+    prof.record_spans(True)
+    trace = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        trace.__enter__()
+    try:
+        with prof.phase("score"):
+            sweeps.sweep_kernel("delta", st, X, hx, scores)
+            torch.cuda.synchronize()
+    finally:
+        trace.__exit__(None, None, None)
+    path = tmp_path / "trace.json"
+    trace.export_chrome_trace(str(path))
+    with open(path) as f:
+        exported = json.load(f)
+    base = int(exported["baseTimeNanoseconds"])
+    kernels = [e for e in exported["traceEvents"]
+               if e.get("ph") == "X" and e.get("cat") == "kernel" and "sweep_" in e.get("name", "")]
+    assert kernels, "the trace holds no sweep kernel"
+    (span,) = prof.take_spans()
+    lo_us, hi_us = (span.start_ns - base) / 1e3, (span.end_ns - base) / 1e3
+    for k in kernels:
+        start, end = float(k["ts"]), float(k["ts"]) + float(k["dur"])
+        assert lo_us - 50.0 <= start and end <= hi_us + 50.0, (k["name"], start - lo_us, hi_us - end)
+
+
 def test_gated_off_sweep_changes_nothing(cuda_device, tmp_path):
     """A launch whose gate is off (the loop's budget is spent) leaves X,
     hx and scores as they were and reports no improvement; the next
