@@ -22,6 +22,12 @@ matmuls, which is what the TPU scoring kernel
 Variable order matches the reference's `variableIdx`: pattern t
 (enumeration order of `enumerate_pairs`) is variable t, loop t is
 variable T + t.
+
+Copy of ambigram_tpu/engine/ilp.py. Where it differs: the builders
+attach G's CSR, made from the triplets they assemble, and every host
+reader of the hard rows takes it from `g_csr`; `hard_violation` is
+that CSR's product in float64, so the original's float lift of the
+dense G (`_g_lift`) is gone.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import List, Optional
 import numpy as np
 
 from ambigram_tpu_torch.engine.enumerate import enumerate_pairs, pair_index
+from ambigram_tpu_torch.utils.profiling import GLOBAL
 
 
 @dataclass
@@ -45,7 +52,8 @@ class BfbProgram:
     c_fbi: np.ndarray  # [n]
     G: np.ndarray  # [m, 2T] int8: hard constraint rows (small-integer
     #   coefficients by construction; consumers upcast — this matrix is
-    #   the program's memory giant at large S)
+    #   the program's memory giant at large S). Host readers take its
+    #   CSR from `g_csr`
     g_lb: np.ndarray  # [m]
     g_ub: np.ndarray  # [m]
     x_ub: np.ndarray  # [2T] variable upper bounds (p: 1, l: max_cn)
@@ -110,41 +118,42 @@ class BfbProgram:
             total = total + np.abs(diff).sum(axis=-1)
         return total
 
-    def _g_lift(self):
-        """Cached float dense G for host-side products, plus whether
-        float32 accumulation is provably exact for it. G is stored int8
-        (the memory-disciplined form); a mixed int8 @ float64 matmul
-        falls off BLAS onto numpy's slow loop (measured ~1.9 s per call
-        at S=48 — it dominated the whole LNS probe), and the conversion
-        must run on the CONTIGUOUS array (`G.T.astype` writes a strided
-        35 MB scatter, ~0.5 s/call measured). f32 is exact only while
-        every row's worst-case |G| . x_ub stays under 2^24; otherwise
-        (huge-CN programs) the lift falls back to float64 — slower but
-        never misclassifies feasibility. Cached per program: callers
-        (feasibility pools, face solves, cut repair) re-measure the
-        same program many times."""
-        cached = getattr(self, "_g_lift_cache", None)
-        if cached is not None:
-            return cached
-        if self.G.shape[0]:
-            row_worst = np.abs(self.G).astype(np.float64) @ np.asarray(
-                self.x_ub, dtype=np.float64
-            )
-            worst = float(row_worst.max(initial=0.0))
-        else:
-            worst = 0.0
-        dtype = np.float32 if worst < 2.0**24 else np.float64
-        cached = (np.ascontiguousarray(self.G, dtype=dtype), dtype)
-        object.__setattr__(self, "_g_lift_cache", cached)
-        return cached
-
     def hard_violation(self, x: np.ndarray) -> np.ndarray:
-        """Total constraint violation; 0 means feasible."""
-        gf, dtype = self._g_lift()
-        gx = (x.astype(dtype) @ gf.T).astype(np.float64)
+        """Total constraint violation; 0 means feasible. Accepts
+        [..., 2T] batches. G x is the sparse product in float64: exact
+        for integer x, whose products with G are sums of small
+        integers."""
+        x = np.asarray(x, dtype=np.float64)
+        G = g_csr(self)
+        gx = (G @ x.reshape(-1, x.shape[-1]).T).T.reshape(x.shape[:-1] + G.shape[:1])
         return np.maximum(gx - self.g_ub, 0).sum(axis=-1) + np.maximum(
             self.g_lb - gx, 0
         ).sum(axis=-1)
+
+
+def attach_g_csr(prog, G_sp):
+    """Keep `G_sp`, the CSR of `prog.G`, on the program for `g_csr`."""
+    object.__setattr__(prog, "_g_csr", (prog.G, G_sp))
+    return prog
+
+
+def g_csr(prog):
+    """The program's hard rows G as a CSR of G's exact values in G's row
+    order, with sorted columns and no stored zeros: what every host
+    reader of G takes (the seeding LP, `hard_violation`, the LNS
+    windows). The builders attach it as they assemble G; a program made
+    any other way, or whose G was replaced, converts its
+    dense G once here, counted as `program.g_csr_dense`, and keeps the
+    result."""
+    kept = getattr(prog, "_g_csr", None)
+    if kept is not None and kept[0] is prog.G:
+        return kept[1]
+    from scipy.sparse import csr_matrix
+
+    GLOBAL.count("program.g_csr_dense")
+    G_sp = csr_matrix(prog.G)
+    attach_g_csr(prog, G_sp)
+    return G_sp
 
 
 def _build_bfb_program_loops(
@@ -336,7 +345,9 @@ def _build_bfb_program_loops(
     x_ub = np.concatenate(
         [np.ones(T, dtype=np.float64), np.full(T, float(max_cn), dtype=np.float64)]
     )
-    return BfbProgram(
+    from scipy.sparse import csr_matrix
+
+    prog = BfbProgram(
         start=start,
         end=end,
         pairs=pairs,
@@ -350,6 +361,7 @@ def _build_bfb_program_loops(
         x_ub=x_ub,
         bias=bias,
     )
+    return attach_g_csr(prog, csr_matrix(G))
 
 
 def _ragged(reps: np.ndarray) -> tuple:
@@ -360,6 +372,26 @@ def _ragged(reps: np.ndarray) -> tuple:
     starts = np.cumsum(reps) - reps
     offset = np.arange(total) - np.repeat(starts, reps)
     return owner, offset
+
+
+def _g_from_triplets(rows, cols, vals, shape):
+    """G as dense int8 and as its CSR (`g_csr`) from COO triplets, the
+    duplicates summed and a sum of 0 left out, as the dense G leaves it
+    out."""
+    from scipy.sparse import coo_matrix
+
+    # not an assert: this guard protects the int8 narrowing below
+    # and must survive `python -O`
+    if not np.array_equal(vals, np.round(vals)):
+        raise ValueError("fractional hard-row coefficient")
+    G_sp = coo_matrix((vals.astype(np.int16), (rows, cols)), shape=shape).tocsr()
+    G_sp.sum_duplicates()
+    G_sp.eliminate_zeros()
+    G16 = G_sp.toarray()
+    G = G16.astype(np.int8)
+    if not np.array_equal(G, G16):
+        raise ValueError("hard-row coefficient outside int8")
+    return G, G_sp.astype(np.int8)
 
 
 def build_bfb_program(
@@ -383,7 +415,7 @@ def build_bfb_program(
     and row order are bit-identical to `_build_bfb_program_loops`,
     verified differentially in tests; ~1000x faster at n = 96.
     """
-    from scipy.sparse import coo_matrix
+    from scipy.sparse import csr_matrix
 
     pairs = enumerate_pairs(start, end)
     T = len(pairs)
@@ -558,35 +590,27 @@ def build_bfb_program(
         # dense G in int8: every hard-row coefficient is a small integer
         # by construction, and G is the memory giant of the program —
         # O(S^2) rows x O(S^2) cols (S=96: 23k x 9312 = 1.7 GB as f64,
-        # 213 MB as int8; S=128 would not fit as f64). Consumers upcast
-        # exactly: x @ G.T promotes to float, PENALTY * G to f64, and
+        # 213 MB as int8; S=128 would not fit as f64). Host products
+        # read its CSR (`g_csr`), PENALTY * G promotes to f64, and
         # scoring_tensors' int8 path takes it as-is. Assembled via int16
         # so COO duplicate-summing cannot wrap before the final check;
         # the integrality check runs against the FLOAT values first (an
         # astype would silently truncate a fractional coefficient before
         # the int8 range check could see it — the straight-loop anchor
         # at line ~261 checks against f64 and this path must be as safe).
-        # not an assert: this guard protects the int8 narrowing below
-        # and must survive `python -O`
-        if not np.array_equal(vals_c, np.round(vals_c)):
-            raise ValueError("fractional hard-row coefficient")
-        G16 = coo_matrix(
-            (vals_c.astype(np.int16), (rows_c, cols_c)), shape=(M, V)
-        ).toarray()
-        G = G16.astype(np.int8)
-        if not np.array_equal(G, G16):
-            raise ValueError("hard-row coefficient outside int8")
+        G, G_sp = _g_from_triplets(rows_c, cols_c, vals_c, (M, V))
         g_lb = np.concatenate(lb_parts)
         g_ub = np.concatenate(ub_parts)
     else:
         G = np.zeros((0, V), dtype=np.int8)
+        G_sp = csr_matrix((0, V), dtype=np.int8)
         g_lb = np.zeros(0)
         g_ub = np.zeros(0)
 
     x_ub = np.concatenate(
         [np.ones(T, dtype=np.float64), np.full(T, float(max_cn), dtype=np.float64)]
     )
-    return BfbProgram(
+    prog = BfbProgram(
         start=start,
         end=end,
         pairs=pairs,
@@ -600,3 +624,4 @@ def build_bfb_program(
         x_ub=x_ub,
         bias=bias,
     )
+    return attach_g_csr(prog, G_sp)

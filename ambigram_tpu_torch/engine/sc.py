@@ -26,7 +26,9 @@ meaning line for line. Where the port differs:
   `extract_sc_programs`;
 - `run_sc_bfb_many` solves all block programs with the port's
   `solve_programs_batch(flat, index, solver=solver, device=device,
-  mesh=mesh)`, which case-stacks same-interval block programs into one search.
+  mesh=mesh)`, which case-stacks same-interval block programs into one search;
+- `build_sc_program` attaches the block program's G as a CSR, made
+  from the clones' own (engine/ilp.py `g_csr`).
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ import numpy as np
 
 from ambigram_tpu_torch.engine.dag import construct_dag
 from ambigram_tpu_torch.engine.enumerate import sorted_key_order
-from ambigram_tpu_torch.engine.ilp import BfbProgram, build_bfb_program
+from ambigram_tpu_torch.engine.ilp import BfbProgram, attach_g_csr, build_bfb_program, g_csr
 from ambigram_tpu_torch.engine.indel import get_indel_bias, indel_bfb
 from ambigram_tpu_torch.engine.junccn import get_junc_cn
 from ambigram_tpu_torch.engine.path import format_bfb, replay_bfb
@@ -60,12 +62,15 @@ def build_sc_program(
     K, so every dtype choice here scales by K^2 in the dense blocks):
     - G stays int8 block-diagonal — the per-clone G is already int8
       (engine/ilp.py) and a float lift would be gigabytes at K=4/S=64;
+      its CSR (`g_csr`) is the clones' CSRs, block-diagonal alike;
     - coupling terms are stored as [P, 2] index PAIRS on the program
       (BfbProgram.coupling), not dense rows: each is a 2-nonzero row,
       and |edges| * 2T dense f64 rows would dwarf everything else.
       The scoring path materializes them as int8 rows on the padded
       tensors; host solvers via `residual_system` only when invoked.
     """
+    from scipy.sparse import block_diag as sparse_block_diag
+
     K = len(progs)
     p0 = progs[0]
     T2 = p0.num_vars  # 2T, identical across graphs (same interval)
@@ -100,7 +105,7 @@ def build_sc_program(
     g_lb = np.concatenate([p.g_lb for p in progs])
     g_ub = np.concatenate([p.g_ub for p in progs])
     x_ub = np.concatenate([p.x_ub for p in progs])
-    return BfbProgram(
+    prog = BfbProgram(
         start=p0.start,
         end=p0.end,
         pairs=p0.pairs,
@@ -115,6 +120,7 @@ def build_sc_program(
         bias=0,
         coupling=coupling,
     )
+    return attach_g_csr(prog, sparse_block_diag([g_csr(p) for p in progs], format="csr", dtype=np.int8))
 
 
 def parse_evolution_edges(edges: str, names: List[str]) -> List[List[int]]:

@@ -3,7 +3,10 @@
 Copied with no change of meaning from ambigram_tpu/solver/search.py,
 whose module imports jax: the epsilon lattice and the LP certificate,
 population seeding, and the paired and triple move catalogues. The
-tests hold every function here equal to its original.
+tests hold every function here equal to its original. `_lp_solve`
+takes G's CSR from the program (engine/ilp.py `g_csr`) where the
+original converts the dense G on every call; the LP it hands HiGHS is
+the same.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ambigram_tpu_torch.engine.enumerate import pair_index
-from ambigram_tpu_torch.engine.ilp import BfbProgram
+from ambigram_tpu_torch.engine.ilp import BfbProgram, g_csr
 
 
 def half_ceil(x: float, eps: float = 1e-6) -> float:
@@ -103,7 +106,7 @@ def _lp_solve(prog: BfbProgram):
     blocks = [hstack([-A_sp, -I]), hstack([A_sp, -I])]
     b_parts = [-c_res, c_res]
     if prog.G.shape[0]:
-        G_sp = csr_matrix(prog.G)
+        G_sp = g_csr(prog)
         fin_ub = np.isfinite(prog.g_ub)
         if fin_ub.any():
             blocks.append(hstack([G_sp[fin_ub], csr_matrix((int(fin_ub.sum()), E))]))

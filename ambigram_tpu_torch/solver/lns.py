@@ -4,10 +4,13 @@ A copy of ambigram_tpu/solver/lns.py for the PyTorch port: `lns_polish`
 for the search's host tail and `cut_repair` for the replay's face retry
 (engine/pipeline.py). Its differences: `lns_polish` takes
 `eps_quantum` from ambigram_tpu_torch.solver.host, because the original
-imports it from ambigram_tpu/solver/search.py, which imports jax; and
-it counts, in the profiler's counters, every neighbourhood it solves
+imports it from ambigram_tpu/solver/search.py, which imports jax; it
+counts, in the profiler's counters, every neighbourhood it solves
 (`lns.neighbourhoods`) and every one whose result it accepts
-(`lns.improved`).
+(`lns.improved`); and where the original makes the coupling rows and a
+float32 G dense, `lns_polish` and its windows read G's CSR
+(engine/ilp.py `g_csr`) and the coupling pairs as sparse rows, and
+hand HiGHS the same subproblems.
 
 The device search (ambigram_tpu_torch.solver.search) is the throughput path,
 but its move neighborhood is local: on noisy profiles at S >= 32 it
@@ -40,7 +43,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from ambigram_tpu_torch.engine.ilp import BfbProgram
+from ambigram_tpu_torch.engine.ilp import BfbProgram, g_csr
 from ambigram_tpu_torch.solver.exact import have_exact_solver, milp_lad
 from ambigram_tpu_torch.utils.profiling import GLOBAL
 
@@ -109,9 +112,10 @@ def _violated_row_cols(
     bad = np.flatnonzero(v > 0)
     if not len(bad):
         return cols
+    G = g_csr(prog)
     taken = 0
     for r in bad[np.argsort(-v[bad])]:
-        row_cols = np.flatnonzero(prog.G[r])
+        row_cols = G.indices[G.indptr[r] : G.indptr[r + 1]]
         new = int((~cols[row_cols]).sum())
         if taken + new > col_budget and taken > 0:
             break
@@ -120,10 +124,19 @@ def _violated_row_cols(
     return cols
 
 
+def _restrict(M, F: np.ndarray, xF: np.ndarray):
+    """Sparse rows M (CSC) restricted to the columns F: (the rows with a
+    nonzero in F, M[:, F] @ xF, those rows of M[:, F] dense)."""
+    M_F = M[:, F].tocsr()
+    keep = np.diff(M_F.indptr) > 0  # M stores no zeros
+    return keep, M_F @ xF, M_F[keep].toarray()
+
+
 def _solve_window(
-    A_res: np.ndarray,
+    A_sf: np.ndarray,
+    C,
     c_res: np.ndarray,
-    G: np.ndarray,
+    G,
     g_lb: np.ndarray,
     g_ub: np.ndarray,
     x_ub: np.ndarray,
@@ -136,8 +149,11 @@ def _solve_window(
 ) -> Optional[np.ndarray]:
     """Exactly solve the program restricted to the free columns, all
     other variables frozen at x. Returns the improved full vector or
-    None. ax = A_res @ x and gx = G @ x are maintained by the caller so
-    the frozen-contribution shift is O(rows * |F|), not O(rows * V).
+    None. The residual rows come as `A_sf` (the seg and fbi rows,
+    dense) and `C` (the coupling rows, sparse CSC), targets `c_res`;
+    the hard rows as `G` (sparse CSC). ax = [A_sf; C] @ x and gx = G @ x
+    are maintained by the caller so the frozen-contribution shift is
+    O(rows * |F|), not O(rows * V).
 
     `screen_margin` (not None => screen): first solve the subproblem's
     LP relaxation (cheap — and *tight*, since every frozen variable is
@@ -149,17 +165,19 @@ def _solve_window(
     near-optimal) cost one LP instead of a full MILP proof. Only valid
     from a feasible incumbent."""
     F = np.flatnonzero(free)
-    A_F = A_res[:, F]
-    # frozen contribution: full row value minus the free part
-    c_shift = ax - A_F @ x[F]
-    keep_res = np.abs(A_F).sum(axis=1) > 0
-    sub_A = A_F[keep_res]
+    xF = x[F]
+    A_F = A_sf[:, F]
+    # a row stays when it has a nonzero in F; its frozen contribution is
+    # the full row value minus the free part
+    keep_c, cxF, sub_C = _restrict(C, F, xF)
+    keep_res = np.concatenate([np.abs(A_F).sum(axis=1) > 0, keep_c])
+    c_shift = ax - np.concatenate([A_F @ xF, cxF])
+    sub_A = np.concatenate([A_F[keep_res[: len(A_F)]], sub_C])
     sub_c = c_res[keep_res] - c_shift[keep_res]
     if G.shape[0]:
-        G_F = G[:, F]
-        g_shift = gx - G_F @ x[F]
-        keep_g = np.abs(G_F).sum(axis=1) > 0
-        sub_G = G_F[keep_g]
+        keep_g, gxF, sub_G = _restrict(G, F, xF)
+        sub_G = sub_G.astype(np.float32)
+        g_shift = gx - gxF
         sub_lb = g_lb[keep_g] - g_shift[keep_g]
         sub_ub = g_ub[keep_g] - g_shift[keep_g]
     else:
@@ -412,11 +430,21 @@ def lns_polish(
     def left() -> float:
         return time_budget - (time.perf_counter() - t_start)
 
-    A_res, c_res = prog.residual_system()
-    # G is stored int8; every product below (gx refresh, window
-    # slicing, subproblem shifts) must ride BLAS, so lift once for the
-    # polish's lifetime (exact: small-integer entries)
-    G, g_lb, g_ub = prog.G.astype(np.float32), prog.g_lb, prog.g_ub
+    # the rows of `residual_system`, [seg | fbi | coupling], with the
+    # coupling pairs as a sparse +1/-1 matrix, and G's CSR as CSC for
+    # the windows' column slices: neither is ever made dense whole
+    from scipy.sparse import coo_matrix
+
+    A_sf = np.concatenate([prog.A_seg, prog.A_fbi]).astype(np.float64, copy=False)
+    P = prog.num_coupling
+    pairs = prog.coupling if P else np.zeros((0, 2), dtype=np.int64)
+    r = np.arange(P)
+    C = coo_matrix(
+        (np.concatenate([np.ones(P), -np.ones(P)]), (np.concatenate([r, r]), pairs.T.ravel())),
+        shape=(P, prog.num_vars),
+    ).tocsc()
+    c_res = np.concatenate([prog.c_seg, prog.c_fbi, np.zeros(P)])
+    G, g_lb, g_ub = g_csr(prog).tocsc(), prog.g_lb, prog.g_ub
 
     def measure(v: np.ndarray) -> Tuple[float, float]:
         vf = v.astype(np.float64)
@@ -425,20 +453,16 @@ def lns_polish(
             float(prog.residual_objective(vf)),
         )
 
-    def gmv(v: np.ndarray) -> np.ndarray:
-        # f32 matvec (exact on these integer rows); a mixed-dtype
-        # product would promote-copy G or fall off BLAS
-        return (G @ v.astype(np.float32)).astype(np.float64)
+    def row_values(v: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        vf = v.astype(np.float64)
+        return np.concatenate([A_sf @ vf, C @ vf]), G @ vf
 
     vio, eps = measure(x)
-    ax = A_res @ x.astype(np.float64)
-    gx = gmv(x) if G.shape[0] else np.zeros(0)
+    ax, gx = row_values(x)
 
     def refresh() -> None:
         nonlocal ax, gx
-        ax = A_res @ x.astype(np.float64)
-        if G.shape[0]:
-            gx = gmv(x)
+        ax, gx = row_values(x)
 
     def at_target() -> bool:
         return target is not None and vio == 0.0 and eps <= target + 1e-6
@@ -491,7 +515,7 @@ def lns_polish(
         seen[key] = version
         GLOBAL.count("lns.neighbourhoods")
         x_new = _solve_window(
-            A_res, c_res, G, g_lb, g_ub, prog.x_ub, x, ax, gx, free, budget,
+            A_sf, C, c_res, G, g_lb, g_ub, prog.x_ub, x, ax, gx, free, budget,
             screen_margin=screen_margin if vio == 0.0 else None,
         )
         if x_new is None:

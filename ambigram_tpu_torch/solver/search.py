@@ -23,8 +23,7 @@ launch for a whole case-stacked group), its plain version on the CPU.
 
 Unlike the original, the host tail times its measurement of the
 incumbent (eps, violation, certified target) under the phase
-`solve.measure`: a program's first `hard_violation` lifts its G to
-float there.
+`solve.measure`.
 """
 
 from __future__ import annotations

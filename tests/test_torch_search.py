@@ -22,6 +22,7 @@ from ambigram_tpu_torch.solver import host, search
 from ambigram_tpu_torch.solver import lns as tlns
 from ambigram_tpu_torch.solver.score import score_rows
 from test_solver import _egfr_prog, _random_prog
+from test_torch_g_csr import recipe_programs
 from test_torch_score import port_from_jax, small_progs
 from test_torch_sweeps import as_port_index, start_state
 
@@ -39,23 +40,30 @@ def small_search(monkeypatch):
     monkeypatch.setenv("AMBIGRAM_SEARCH_SWEEPS", "64")
 
 
-@pytest.mark.parametrize("name", NAMES)
-def test_host_helpers_match_jax(name):
-    prog = small_progs()[name]
-    for a, b in zip(host.slide_transfer_moves(prog), jsearch.slide_transfer_moves(prog)):
+@pytest.mark.parametrize("name", NAMES + ["sc_k3"])
+def test_host_helpers_match_jax(name, tmp_path):
+    """`sc_k3`: a K=3 block program of the benchmark's recipe at S=10,
+    each package's own build, so the port's seeding LP reads the CSR its
+    builders attach."""
+    if name == "sc_k3":
+        prog, jprog = recipe_programs(tmp_path)
+    else:
+        prog = jprog = small_progs()[name]
+    for a, b in zip(host.slide_transfer_moves(prog), jsearch.slide_transfer_moves(jprog)):
         np.testing.assert_array_equal(a, b)
-    for a, b in zip(host.split_merge_moves(prog), jsearch.split_merge_moves(prog)):
+    for a, b in zip(host.split_merge_moves(prog), jsearch.split_merge_moves(jprog)):
         np.testing.assert_array_equal(a, b)
-    np.testing.assert_array_equal(host.greedy_peel_seed(prog), jsearch.greedy_peel_seed(prog))
-    Vp = 128
+    np.testing.assert_array_equal(host.greedy_peel_seed(prog), jsearch.greedy_peel_seed(jprog))
+    Vp = max(128, -(-prog.num_vars // 128) * 128)
     x_ub = np.zeros(Vp, dtype=np.float32)
     x_ub[: prog.num_vars] = prog.x_ub
     X_t, lb_t = host._seed_case(prog, Vp, x_ub, 12, seed=4)
-    X_j, lb_j = jsearch._seed_case(prog, Vp, x_ub, 12, seed=4)
+    X_j, lb_j = jsearch._seed_case(jprog, Vp, x_ub, 12, seed=4)
     np.testing.assert_array_equal(X_t, X_j)
-    assert lb_t == lb_j == host.lp_lower_bound(prog) == jsearch.lp_lower_bound(prog)
-    assert host.eps_quantum(prog) == jsearch.eps_quantum(prog)
-    assert host.certified_bound(prog, lb_t) == jsearch.certified_bound(prog, lb_j)
+    assert lb_t == lb_j == host.lp_lower_bound(prog) == jsearch.lp_lower_bound(jprog)
+    np.testing.assert_array_equal(host.lp_relaxation(prog)[1], jsearch.lp_relaxation(jprog)[1])
+    assert host.eps_quantum(prog) == jsearch.eps_quantum(jprog)
+    assert host.certified_bound(prog, lb_t) == jsearch.certified_bound(jprog, lb_j)
     for v in (0.0, 0.2, 0.5, 1.49, 2.0000001, 7.75):
         assert host.half_ceil(v) == jsearch.half_ceil(v)
 
