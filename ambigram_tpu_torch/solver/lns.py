@@ -6,11 +6,13 @@ for the search's host tail and `cut_repair` for the replay's face retry
 `eps_quantum` from ambigram_tpu_torch.solver.host, because the original
 imports it from ambigram_tpu/solver/search.py, which imports jax; it
 counts, in the profiler's counters, every neighbourhood it solves
-(`lns.neighbourhoods`) and every one whose result it accepts
-(`lns.improved`); and where the original makes the coupling rows and a
-float32 G dense, `lns_polish` and its windows read G's CSR
-(engine/ilp.py `g_csr`) and the coupling pairs as sparse rows, and
-hand HiGHS the same subproblems.
+(`lns.neighbourhoods`), every one whose result it accepts
+(`lns.improved`), every window MILP it solves (`lns.milps`) and every
+one of those that stopped on its time limit (`lns.milp_capped`); and
+where the original makes the coupling rows and a float32 G dense,
+`lns_polish` and its windows read G's CSR (engine/ilp.py `g_csr`) and
+the coupling pairs as sparse rows, and hand HiGHS the same
+subproblems.
 
 The device search (ambigram_tpu_torch.solver.search) is the throughput path,
 but its move neighborhood is local: on noisy profiles at S >= 32 it
@@ -203,6 +205,9 @@ def _solve_window(
         return None
     with GLOBAL.phase("solve.lns.milp"):
         res = milp_lad(sub_A, sub_c, sub_G, sub_lb, sub_ub, x_ub[F], time_left)
+    GLOBAL.count("lns.milps")
+    if res.status == 1:
+        GLOBAL.count("lns.milp_capped")
     if res.status not in (0, 1) or res.x is None:
         return None
     # status 1 (time limit) may surface a fractional point; the rounded

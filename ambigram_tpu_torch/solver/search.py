@@ -23,7 +23,10 @@ launch for a whole case-stacked group), its plain version on the CPU.
 
 Unlike the original, the host tail times its measurement of the
 incumbent (eps, violation, certified target) under the phase
-`solve.measure`.
+`solve.measure`, its LNS probe under `solve.lns.probe` and every full
+polish under `solve.lns.full` (both inside `solve.lns`), and counts its
+probes (`lns.probes`), the probes it escalated (`lns.escalations`) and
+the eps it gained (`lns.eps_gain`).
 """
 
 from __future__ import annotations
@@ -380,17 +383,20 @@ def _finish_solution(
     if polish and (violation > 0.0 or (eps_sum > 0.0 and (tgt is None or eps_sum > tgt + 1e-6))):
         with GLOBAL.phase("solve.lns"):
             if violation > 0.0 or not converged:
-                x_p, eps_p, vio_p = lns_polish(prog, x_int, target=tgt, time_budget=lns_budget)
+                with GLOBAL.phase("solve.lns.full"):
+                    x_p, eps_p, vio_p = lns_polish(prog, x_int, target=tgt, time_budget=lns_budget)
             else:
+                GLOBAL.count("lns.probes")
                 t0 = time.perf_counter()
                 full = (
                     lns_budget
                     if lns_budget is not None
                     else float(os.environ.get("AMBIGRAM_LNS_BUDGET", 45.0))
                 )
-                x_p, eps_p, vio_p = lns_polish(
-                    prog, x_int, target=tgt, time_budget=min(6.0, full), probe=True
-                )
+                with GLOBAL.phase("solve.lns.probe"):
+                    x_p, eps_p, vio_p = lns_polish(
+                        prog, x_int, target=tgt, time_budget=min(6.0, full), probe=True
+                    )
                 left = full - (time.perf_counter() - t0)
                 if (vio_p, eps_p) < (violation, eps_sum) and left > 1.0 and (
                     tgt is None or eps_p > tgt + 1e-6
@@ -398,11 +404,15 @@ def _finish_solution(
                     # escalate from the ORIGINAL incumbent, not the
                     # probe's point: the probe's budget-starved endpoint
                     # MILP can move it into a worse basin
-                    x_f, eps_f, vio_f = lns_polish(prog, x_int, target=tgt, time_budget=left)
+                    GLOBAL.count("lns.escalations")
+                    with GLOBAL.phase("solve.lns.full"):
+                        x_f, eps_f, vio_f = lns_polish(prog, x_int, target=tgt, time_budget=left)
                     if (vio_f, eps_f) < (vio_p, eps_p):
                         x_p, eps_p, vio_p = x_f, eps_f, vio_f
+        eps_before = eps_sum
         if (vio_p, eps_p) < (violation, eps_sum):
             x_int, eps_sum, violation = x_p, eps_p, vio_p
+        GLOBAL.count("lns.eps_gain", eps_before - eps_sum)
     status = "heuristic"
     if violation == 0.0 and certify:
         # eps == 0 is its own certificate (the objective is nonnegative)
