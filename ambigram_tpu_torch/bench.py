@@ -33,6 +33,7 @@ other value exits with code 2. A leg that fails makes the bench exit 1.
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import shutil
@@ -323,7 +324,7 @@ def bench_batch() -> dict:
     of the host MILP (15 s per case) that stands in for the reference's
     one process per sample. One identical warm-up run first, reported
     apart."""
-    from ambigram_tpu_torch.engine.pipeline import extract_programs, run_bfb, run_bfb_many
+    from ambigram_tpu_torch.engine.pipeline import build_case, replay_case, run_bfb_many
     from ambigram_tpu_torch.solver.exact import solve_exact
 
     device, n_cases = "cuda", 16
@@ -338,8 +339,9 @@ def bench_batch() -> dict:
         t0 = time.perf_counter()
         serial_ok, serial_eps = 0, 0.0
         for p in lh_paths:
-            presolved = [solve_exact(pr, time_limit=15.0) if pr is not None else None for pr in extract_programs(p)]
-            r = run_bfb(p, solver="exact", device=device, presolved=presolved)
+            case = build_case(p)
+            sols = [solve_exact(pr, time_limit=15.0) if pr is not None else None for pr in case.programs]
+            r = replay_case(case, sols, io.StringIO())
             serial_ok += bool(any(s for s in r.path_strings))
             serial_eps += r.ilp_error
         serial_secs = time.perf_counter() - t0
@@ -508,7 +510,7 @@ def bench_sc(n_samples: int = 6, n_clones: int = 3, n_segments: int = 24) -> dic
     as `compile_seconds` (the JAX leg warms its XLA compiles there)."""
     import torch
 
-    from ambigram_tpu_torch.engine.sc import extract_sc_programs, run_sc_bfb, run_sc_bfb_many
+    from ambigram_tpu_torch.engine.sc import build_sc_sample, replay_sc_sample, run_sc_bfb_many
     from ambigram_tpu_torch.solver.exact import solve_exact
     from ambigram_tpu_torch.solver.score import _k1_library
 
@@ -533,11 +535,9 @@ def bench_sc(n_samples: int = 6, n_clones: int = 3, n_segments: int = 24) -> dic
         t0 = time.perf_counter()
         serial_ok = 0
         for s in samples:
-            presolved = [
-                solve_exact(pr, time_limit=15.0) if pr is not None else None
-                for pr in extract_sc_programs(s["lh_paths"], s["edges"])
-            ]
-            r = run_sc_bfb(s["lh_paths"], solver="exact", device=device, presolved=presolved, edges=s["edges"])
+            sample = build_sc_sample(s["lh_paths"], s["edges"])
+            sols = [solve_exact(pr, time_limit=15.0) if pr is not None else None for pr in sample.programs]
+            r = replay_sc_sample(sample, sols, io.StringIO())
             serial_ok += solved(r)
         serial_secs = time.perf_counter() - t0
     finally:

@@ -2,11 +2,17 @@
 port's device search.
 
 Port of ambigram_tpu/engine/pipeline.py. The host parts (the result
-types, `extract_programs`, the path replay `run_bfb` with its face
-retry, auto's host tails `_auto_post`/`_post_big_auto`, the ledgers and
-the result store) are copies that keep the original's meaning line for
-line. Where the port differs:
+types, the case's build and path replay with its face retry, auto's
+host tails `_auto_post`/`_post_big_auto`, the ledgers and the result
+store) are copies that keep the original's meaning line for line.
+Where the port differs:
 
+- one builder and one replay: `build_case` parses a case and builds its
+  fitting programs, `replay_case` replays its paths from their
+  solutions, and `run_bfb` (build, `_solve` each program, replay) and
+  `run_bfb_many` (build each case, one `solve_programs_batch`, replay
+  each case) both go over the two; `extract_programs` is a view of the
+  builder;
 - `_solve`, `run_bfb`, `run_bfb_many` and `solve_programs_batch` take a
   torch `device` and run the port's search (solver/search.py) there;
   a CUDA device without a card raises;
@@ -25,7 +31,7 @@ import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 
@@ -36,7 +42,7 @@ from ambigram_tpu_torch.engine.ilp import BfbProgram, build_bfb_program
 from ambigram_tpu_torch.engine.indel import get_indel_bias, indel_bfb
 from ambigram_tpu_torch.engine.junccn import fbi_bias, get_junc_cn
 from ambigram_tpu_torch.engine.path import format_bfb, replay_bfb
-from ambigram_tpu_torch.engine.props import parse_bfb_props
+from ambigram_tpu_torch.engine.props import BfbProps, parse_bfb_props
 from ambigram_tpu_torch.model.genome import Genome, Junction, Segment, VertexPath
 from ambigram_tpu_torch.utils.profiling import GLOBAL
 
@@ -92,8 +98,9 @@ def _per_case_lns_budget(n_cases: int, workers: int) -> float:
     with the batch)."""
     import math
 
-    total = float(os.environ.get("AMBIGRAM_LNS_BUDGET", 45.0))
-    return max(1.0, total / math.ceil(max(1, n_cases) / max(1, workers)))
+    from ambigram_tpu_torch.solver.lns import default_lns_budget
+
+    return max(1.0, default_lns_budget() / math.ceil(max(1, n_cases) / max(1, workers)))
 
 
 def _solve(prog: BfbProgram, solver: str, device, lns_budget: Optional[float] = None):
@@ -195,31 +202,43 @@ def _auto_post(
     return candidates[0]
 
 
-def run_bfb(
-    lh_path: str,
-    juncs_path: str = "",
-    juncs_info: bool = False,
-    is_reversed: bool = False,
-    print_all: bool = False,
-    solver: str = "auto",
-    device="cuda",
-    out=None,
-    ledger_dir: Optional[str] = None,
-    lp_prefix: str = "sample",
-    presolved: Optional[List] = None,
-    emit_lp: bool = False,
-) -> BfbResult:
-    """Reconstruct the BFB path(s) of one LH case. Each non-trivial
-    chromosome's program is solved by `_solve` with the search on
-    `device` (a CUDA device without a card raises), unless `presolved`
-    holds its solution; then its path is replayed."""
-    from ambigram_tpu_torch.solver.search import resolve_device
+@dataclass
+class ChromosomeBuild:
+    """One chromosome of a built case: its segment interval, its
+    fold-back inversions (in a single-cell sample, one dict a clone)
+    and its fitting program (None where the chromosome is trivial)."""
 
-    device = resolve_device(device)
+    start: int
+    end: int
+    inversions: Union[Dict[int, Junction], List[Dict[int, Junction]]]
+    program: Optional[BfbProgram]
+
+
+@dataclass
+class CaseBuild:
+    """One case as `build_case` (or, for a single-cell sample,
+    sc.build_sc_sample) leaves it for its solve and replay: its genomes
+    (one a clone), its props, the TRX modes' segment map and unused SVs,
+    its chromosomes; `seconds` is the build's host time."""
+
+    genomes: List[Genome]
+    props: BfbProps
+    chromosomes: List[ChromosomeBuild]
+    original_segs: Dict[Segment, Segment] = field(default_factory=dict)
+    unused_sv: List[Junction] = field(default_factory=list)
+    seconds: float = 0.0
+
+    @property
+    def programs(self) -> List[Optional[BfbProgram]]:
+        return [c.program for c in self.chromosomes]
+
+
+def build_case(lh_path: str, juncs_path: str = "", juncs_info: bool = False) -> CaseBuild:
+    """Everything `run_bfb` does before its solve: parse the case, apply
+    its insertion or concatenation mode, read its long-read components,
+    then chromosome by chromosome tabulate the junction CNs, apply the
+    indel bias and build the fitting program of each non-trivial one."""
     begin = time.perf_counter()
-    if out is None:
-        out = _io.StringIO()
-
     with GLOBAL.phase("parse"):
         g = Genome.from_lh(lh_path)
         g.calculate_hap_depth()
@@ -239,23 +258,18 @@ def run_bfb(
 
     sources = list(g.sources)
     sinks = list(g.sinks)
-    segs = list(g.segments)
     for i, (src, snk) in enumerate(zip(sources, sinks)):
         for seg_id in range(src.id, snk.id + 1):
             g.segment_by_id(seg_id).partition = i
 
     components = read_components(g, original_segs, juncs_path)
 
-    result = BfbResult(genome=g)
-    result.target_cn = [0] * len(g.segments)
-    num_inv = 0
-
+    chromosomes: List[ChromosomeBuild] = []
     for n in range(len(sinks)):
         start_id = sources[n].id
         end_id = sinks[n].id
 
         inversions, junc_cn = get_junc_cn(g, start_id, end_id)
-        num_inv += len(inversions)
         bias = fbi_bias(inversions, junc_cn, start_id, end_id)
         get_indel_bias(g, start_id, end_id)
 
@@ -263,62 +277,118 @@ def run_bfb(
         valid_components = [
             c for c in components if g.segment_by_id(c[0]).partition == n
         ]
-
-        if abs(inversion_cn_sum) < 1e-6 and not valid_components:
-            path = [g.segment_by_id(i).pos for i in range(start_id, end_id + 1)]
-            out.write(format_bfb(path) + "\n")
-            result.paths.append(path)
-            result.chromosomes.append(
-                ChromosomeResult(
-                    start=start_id,
-                    end=end_id,
-                    path=path,
-                    path_string=format_bfb(path),
-                    trivial=True,
+        prog = None
+        if abs(inversion_cn_sum) >= 1e-6 or valid_components:
+            seg_cn = np.array(
+                [g.segment_by_id(i).weight.copy_num for i in range(start_id, end_id + 1)]
+            )
+            fbi_cn = junc_cn[start_id : end_id + 1, 1].copy()
+            max_cn = sum(s.weight.copy_num for s in g.segments)
+            with GLOBAL.phase("program_build"):
+                prog = build_bfb_program(
+                    start_id,
+                    end_id,
+                    seg_cn,
+                    fbi_cn,
+                    max_cn,
+                    bias,
+                    components=valid_components,
+                    juncs_info=juncs_info,
                 )
-            )
-            continue
+        chromosomes.append(ChromosomeBuild(start_id, end_id, inversions, prog))
+    return CaseBuild([g], props, chromosomes, original_segs, unused_sv, time.perf_counter() - begin)
 
-        seg_cn = np.array(
-            [g.segment_by_id(i).weight.copy_num for i in range(start_id, end_id + 1)]
-        )
-        fbi_cn = junc_cn[start_id : end_id + 1, 1].copy()
-        max_cn = sum(s.weight.copy_num for s in g.segments)
-        with GLOBAL.phase("program_build"):
-            prog = build_bfb_program(
-                start_id,
-                end_id,
-                seg_cn,
-                fbi_cn,
-                max_cn,
-                bias,
-                components=valid_components,
-                juncs_info=juncs_info,
-            )
+
+def solve_each(
+    programs: List[Optional[BfbProgram]],
+    solver: str,
+    device,
+    emit_lp: bool = False,
+    lp_prefix: str = "sample",
+) -> List[Optional[object]]:
+    """One case's solutions: each program solved by `_solve` under the
+    `solve` phase, None where the chromosome is trivial. With `emit_lp`
+    each program is first written to `<lp_prefix>.lp` / `.mps`, as the
+    reference writes one for every solve (LGM.cpp:4749-4750 and
+    5091-5092, overwritten per chromosome); here the artifact is opt-in
+    since no external solver is invoked: it exists for differential
+    checking."""
+    solutions: List[Optional[object]] = []
+    for prog in programs:
+        if prog is None:
+            solutions.append(None)
+            continue
         if emit_lp:
-            # the reference writes <lp_prefix>.mps / .lp for every solve
-            # (LGM.cpp:4749-4750, overwritten per chromosome); here the
-            # artifact is opt-in (like the ledgers) since no external
-            # solver is invoked — it exists for differential checking
             from ambigram_tpu_torch.io.program_io import write_lp, write_mps
 
             write_lp(prog, lp_prefix + ".lp")
             write_mps(prog, lp_prefix + ".mps")
-        if presolved is not None and n < len(presolved) and presolved[n] is not None:
-            sol = presolved[n]
-        else:
-            with GLOBAL.phase("solve"):
-                sol = _solve(prog, solver, device)
-        if sol.status == "heuristic" and float(
+        with GLOBAL.phase("solve"):
+            solutions.append(_solve(prog, solver, device))
+    return solutions
+
+
+def run_bfb(
+    lh_path: str,
+    juncs_path: str = "",
+    juncs_info: bool = False,
+    is_reversed: bool = False,
+    print_all: bool = False,
+    solver: str = "auto",
+    device="cuda",
+    out=None,
+    ledger_dir: Optional[str] = None,
+    lp_prefix: str = "sample",
+    emit_lp: bool = False,
+) -> BfbResult:
+    """Reconstruct the BFB path(s) of one LH case: `build_case`, then
+    `_solve` on each non-trivial chromosome's program with the search on
+    `device` (a CUDA device without a card raises), then `replay_case`."""
+    from ambigram_tpu_torch.solver.search import resolve_device
+
+    device = resolve_device(device)
+    begin = time.perf_counter()
+    if out is None:
+        out = _io.StringIO()
+    case = build_case(lh_path, juncs_path, juncs_info)
+    solutions = solve_each(case.programs, solver, device, emit_lp, lp_prefix)
+    result = replay_case(case, solutions, out, is_reversed, print_all)
+    result.seconds = time.perf_counter() - begin
+    if ledger_dir is not None:
+        _append_ledgers(result, lh_path, juncs_path, ledger_dir)
+    return result
+
+
+def replay_case(
+    case: CaseBuild,
+    solutions: List[Optional[object]],
+    out,
+    is_reversed: bool = False,
+    print_all: bool = False,
+) -> BfbResult:
+    """Everything `run_bfb` does after its solve: each chromosome's path
+    replayed from its solution (`solutions[n]`, None where the
+    chromosome is trivial) and written to `out`, then the case's target
+    CN, output junctions, translocation merge and resolved check. The
+    caller sets `seconds`."""
+    g, props = case.genomes[0], case.props
+    result = BfbResult(genome=g)
+    result.target_cn = [0] * len(g.segments)
+    result.num_inversions = sum(len(c.inversions) for c in case.chromosomes)
+
+    for chrom, sol in zip(case.chromosomes, solutions):
+        start_id, end_id, inversions, prog = chrom.start, chrom.end, chrom.inversions, chrom.program
+        if prog is not None and sol.status == "heuristic" and float(
             prog.hard_violation(sol.x.astype(np.float64))
         ) != 0.0:
             # a "heuristic" incumbent must satisfy the hard constraints
             # to be usable for path reconstruction; demote otherwise
             sol.status = "error"
-        if sol.status not in ("optimal", "heuristic"):
+        if prog is None or sol.status not in ("optimal", "heuristic"):
             path = [g.segment_by_id(i).pos for i in range(start_id, end_id + 1)]
             out.write(format_bfb(path) + "\n")
-            out.write("ILP is unsolvable.\n")
+            if prog is not None:
+                out.write("ILP is unsolvable.\n")
             result.paths.append(path)
             result.chromosomes.append(
                 ChromosomeResult(
@@ -327,7 +397,7 @@ def run_bfb(
                     path=path,
                     path_string=format_bfb(path),
                     trivial=True,
-                    infeasible=True,
+                    infeasible=prog is not None,
                 )
             )
             continue
@@ -387,7 +457,7 @@ def run_bfb(
         if props.ins_mode == 1 or props.con_mode == 1:
             from ambigram_tpu_torch.engine.trx import virus_bfb
 
-            virus_bfb(g, path, original_segs, unused_sv, out=out)
+            virus_bfb(g, path, case.original_segs, case.unused_sv, out=out)
         result.paths.append(path)
         result.chromosomes.append(
             ChromosomeResult(
@@ -401,13 +471,9 @@ def run_bfb(
             )
         )
 
-    result.num_inversions = num_inv
-
     # output junction derivation (localhap.cpp:267-289)
     output_juncs: List[Junction] = []
-    path_len = 0
     for p in result.paths:
-        path_len += len(p)
         for i in range(len(p) - 1):
             u, v = p[i], p[i + 1]
             if not (abs(u.id - v.id) == 1 and u.dir == v.dir):
@@ -451,18 +517,14 @@ def run_bfb(
     # resolved check (localhap.cpp:318-324)
     if result.ilp_error < 0.1:
         error = 0
-        for k, seg in enumerate(segs):
+        for k, seg in enumerate(g.segments):
             # reference accumulates abs(double diff) into an int, which
             # truncates toward zero (localhap.cpp:320-322)
             error += int(abs(seg.weight.copy_num - result.target_cn[k]))
-        if error > len(segs):
+        if error > len(g.segments):
             result.is_resolved = False
 
     result.path_strings = [c.path_string for c in result.chromosomes]
-    result.seconds = time.perf_counter() - begin
-
-    if ledger_dir is not None:
-        _append_ledgers(result, g, lh_path, juncs_path, ledger_dir, segs, path_len)
     return result
 
 
@@ -639,56 +701,15 @@ def extract_programs(
     lh_path: str, juncs_path: str = "", juncs_info: bool = False
 ) -> List[Optional[BfbProgram]]:
     """Per-chromosome fitting programs for one case (None where the
-    chromosome is trivial). Mirrors run_bfb's preamble on a private
-    Genome instance."""
-    g = Genome.from_lh(lh_path)
-    g.calculate_hap_depth()
-    g.calculate_copy_num()
-    props = parse_bfb_props(lh_path)
-    original_segs: Dict[Segment, Segment] = {}
-    unused_sv: List[Junction] = []
-    if props.ins_mode == 1:
-        from ambigram_tpu_torch.engine.trx import insert_before_bfb
+    chromosome is trivial): `build_case`'s."""
+    return build_case(lh_path, juncs_path, juncs_info).programs
 
-        g = insert_before_bfb(g, props.ins_chr, original_segs, unused_sv)
-    elif props.con_mode == 1:
-        from ambigram_tpu_torch.engine.trx import concat_before_bfb
 
-        g = concat_before_bfb(g, props.con_chr, original_segs, unused_sv)
-    for i, (src, snk) in enumerate(zip(g.sources, g.sinks)):
-        for seg_id in range(src.id, snk.id + 1):
-            g.segment_by_id(seg_id).partition = i
-    components = read_components(g, original_segs, juncs_path)
-    out: List[Optional[BfbProgram]] = []
-    for n in range(len(g.sinks)):
-        start_id = g.sources[n].id
-        end_id = g.sinks[n].id
-        inversions, junc_cn = get_junc_cn(g, start_id, end_id)
-        bias = fbi_bias(inversions, junc_cn, start_id, end_id)
-        get_indel_bias(g, start_id, end_id)
-        inversion_cn_sum = float(junc_cn[: end_id + 1, 1].sum())
-        valid_components = [
-            c for c in components if g.segment_by_id(c[0]).partition == n
-        ]
-        if abs(inversion_cn_sum) < 1e-6 and not valid_components:
-            out.append(None)
-            continue
-        seg_cn = np.array(
-            [g.segment_by_id(i).weight.copy_num for i in range(start_id, end_id + 1)]
-        )
-        out.append(
-            build_bfb_program(
-                start_id,
-                end_id,
-                seg_cn,
-                junc_cn[start_id : end_id + 1, 1].copy(),
-                sum(s.weight.copy_num for s in g.segments),
-                bias,
-                components=valid_components,
-                juncs_info=juncs_info,
-            )
-        )
-    return out
+def batch_programs(programs: Dict[int, List[Optional[BfbProgram]]]):
+    """The flat program list of a batch and its (case, chromosome) keys,
+    for `solve_programs_batch`, from each case's programs."""
+    index = [(i, n) for i, progs in programs.items() for n, prog in enumerate(progs) if prog is not None]
+    return [programs[i][n] for i, n in index], index
 
 
 def run_bfb_many(
@@ -703,10 +724,11 @@ def run_bfb_many(
     ledger_dir: Optional[str] = None,
     mesh=None,
 ) -> List[BfbResult]:
-    """Batch pipeline: every case's fitting programs are solved in one
-    batch (`solve_programs_batch`, on `mesh`, by default the one device
-    `device`), then each case's replay runs on a thread pool; its text
-    reaches `out` in input order.
+    """Batch pipeline: each case is built once (`build_case`), every
+    fitting program is solved in one call of `solve_programs_batch` (on
+    `mesh`, by default the one device `device`), then each case is
+    replayed (`replay_case`) on a thread pool; its text reaches `out` in
+    input order. A case's `seconds` is its build and replay time.
 
     `result_store` (a directory) makes the batch idempotent: a finished
     case writes `<name>-<content-hash>.json`, and a rerun skips every
@@ -728,33 +750,21 @@ def run_bfb_many(
                 cached[i] = _result_from_store(fn)
 
     active = [i for i in range(len(lh_paths)) if i not in cached]
-    per_case_progs = {i: extract_programs(lh_paths[i], juncs_paths[i], juncs_info) for i in active}
-    flat: List[BfbProgram] = []
-    index: List[tuple] = []
-    for i in active:
-        for n, prog in enumerate(per_case_progs[i]):
-            if prog is not None:
-                flat.append(prog)
-                index.append((i, n))
-
+    builds = {i: build_case(lh_paths[i], juncs_paths[i], juncs_info) for i in active}
+    flat, index = batch_programs({i: case.programs for i, case in builds.items()})
     solutions = solve_programs_batch(flat, index, solver=solver, device=device, mesh=mesh)
 
     results: List[Optional[BfbResult]] = [None] * len(lh_paths)
     buffers: Dict[int, _io.StringIO] = {}
 
     def _replay_case(i: int) -> None:
-        presolved = [solutions.get((i, n)) for n in range(len(per_case_progs[i]))]
+        begin = time.perf_counter()
+        case = builds[i]
         buf = buffers[i] = _io.StringIO()
-        results[i] = run_bfb(
-            lh_paths[i],
-            juncs_path=juncs_paths[i],
-            juncs_info=juncs_info,
-            is_reversed=is_reversed,
-            solver="exact",
-            device=device,
-            out=buf,
-            presolved=presolved,
+        results[i] = replay_case(
+            case, [solutions.get((i, n)) for n in range(len(case.chromosomes))], buf, is_reversed
         )
+        results[i].seconds = case.seconds + time.perf_counter() - begin
 
     with ThreadPoolExecutor(max_workers=min(4, max(1, len(active)))) as pool:
         list(pool.map(_replay_case, active))
@@ -765,18 +775,10 @@ def run_bfb_many(
         if out is not None:
             out.write(buffers[i].getvalue())
         if ledger_dir is not None:
-            _append_case_ledgers(results[i], path, juncs_paths[i], ledger_dir)
+            _append_ledgers(results[i], path, juncs_paths[i], ledger_dir)
         if result_store:
             _result_to_store(os.path.join(result_store, store_keys[i] + ".json"), results[i])
     return results
-
-
-def _append_case_ledgers(
-    res: BfbResult, lh_path: str, juncs_path: str, ledger_dir: str
-) -> None:
-    segs = list(res.genome.segments) if res.genome is not None else []
-    path_len = sum(len(p) for p in res.paths)
-    _append_ledgers(res, res.genome, lh_path, juncs_path, ledger_dir, segs, path_len)
 
 
 def solve_programs_batch(
@@ -1046,17 +1048,12 @@ def _result_from_store(fn: str) -> BfbResult:
     )
 
 
-def _append_ledgers(
-    result: BfbResult,
-    g: Genome,
-    lh_path: str,
-    juncs_path: str,
-    ledger_dir: str,
-    segs: List[Segment],
-    path_len: int,
-) -> None:
-    import os
-
+def _append_ledgers(result: BfbResult, lh_path: str, juncs_path: str, ledger_dir: str) -> None:
+    """The case's rows of simulation_sv.txt and time.csv (localhap.cpp
+    analogs), appended in `ledger_dir`."""
+    g = result.genome
+    segs = list(g.segments)
+    path_len = sum(len(p) for p in result.paths)
     cn_sum = sum(int(s.weight.copy_num) for s in segs)
     max_cn = max((int(s.weight.copy_num) for s in segs), default=0)
     with open(os.path.join(ledger_dir, "simulation_sv.txt"), "a") as f:

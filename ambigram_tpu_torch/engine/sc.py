@@ -14,19 +14,28 @@ Solutions therefore favor subclones sharing patterns/loops.
 Port of ambigram_tpu/engine/sc.py; every function keeps the original's
 meaning line for line. Where the port differs:
 
+- one builder and one replay: `build_sc_sample` parses a sample and
+  builds its block programs, `replay_sc_sample` replays its clones'
+  paths from their solutions, and both entries go over the two
+  (build, solve, replay); `extract_sc_programs` is a view of the
+  builder. So the batch entry applies every clone's indel bias
+  (`get_indel_bias`), as `run_sc_bfb` and the reference's sc_bfb op do,
+  where JAX's `extract_sc_programs` does not, and it replays through
+  `replay_sc_sample`, not through `run_sc_bfb`;
 - `run_sc_bfb` and `run_sc_bfb_many` take a torch `device` (default
   `cuda`; a CUDA device without a card raises); `run_sc_bfb_many` also
   takes JAX's `mesh` (None: the one device `device`);
 - `run_sc_bfb` solves each block program with the port's
-  `pipeline._solve(sc_prog, solver, device)`, timed under the `solve`
-  phase, and each clone's replay under the `replay` phase, as the
-  port's `run_bfb` times its own; its parsing (the clones' genomes, the
-  evolution edges, the props) runs under the `parse` phase and each
-  chromosome's program build under `program_build`, as do those of
-  `extract_sc_programs`;
-- `run_sc_bfb_many` solves all block programs with the port's
-  `solve_programs_batch(flat, index, solver=solver, device=device,
-  mesh=mesh)`, which case-stacks same-interval block programs into one search;
+  `pipeline._solve(sc_prog, solver, device)` (through
+  `pipeline.solve_each`), timed under the `solve` phase; the builder
+  times its parsing (the clones' genomes, the evolution edges, the
+  props) under the `parse` phase and each chromosome's program build
+  under `program_build`, the replay each clone's under `replay`, as the
+  port's `run_bfb` times its own;
+- `run_sc_bfb_many` solves all block programs with one call of the
+  port's `solve_programs_batch(flat, index, solver=solver,
+  device=device, mesh=mesh)`, which case-stacks same-interval block
+  programs into one search;
 - `build_sc_program` attaches the block program's G as a CSR, made
   from the clones' own (engine/ilp.py `g_csr`).
 """
@@ -40,6 +49,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ambigram_tpu_torch.engine import pipeline
 from ambigram_tpu_torch.engine.dag import construct_dag
 from ambigram_tpu_torch.engine.enumerate import sorted_key_order
 from ambigram_tpu_torch.engine.ilp import BfbProgram, attach_g_csr, build_bfb_program, g_csr
@@ -199,13 +209,13 @@ class ScBfbResult:
     seconds: float = 0.0
 
 
-def extract_sc_programs(
-    lh_paths: str, edges: str = ""
-) -> List[Optional[BfbProgram]]:
-    """Per-chromosome single-cell block programs for one sample (None
-    where the chromosome is trivial). Mirrors run_sc_bfb's preamble —
-    the batch pipeline (`run_sc_bfb_many`) solves these through
-    pipeline.solve_programs_batch and replays with `presolved`."""
+def build_sc_sample(lh_paths: str, edges: str = "") -> pipeline.CaseBuild:
+    """Everything `run_sc_bfb` does before its solve: parse the clones
+    named in `lh_paths` (comma list), the evolution DAG of `edges` and
+    the props, then chromosome by chromosome (g0's intervals) apply
+    every clone's indel bias and build the block program of each
+    non-trivial one."""
+    begin = time.perf_counter()
     names = [s for s in lh_paths.split(",") if s]
     genomes: List[Genome] = []
     with GLOBAL.phase("parse"):
@@ -214,30 +224,39 @@ def extract_sc_programs(
             g.calculate_hap_depth()
             g.calculate_copy_num()
             genomes.append(g)
+        # evolution DAG: user-supplied edges, else all-pairs default
         evolution = parse_evolution_edges(edges, names)
-    g0 = genomes[0]
-    out: List[Optional[BfbProgram]] = []
-    for n in range(len(g0.sources)):
-        start_id = g0.sources[n].id
-        end_id = g0.sinks[n].id
+
+        g0 = genomes[0]
+        props = parse_bfb_props(lh_paths)  # comma-joined name: degrades to empty
+
+        sources = list(g0.sources)
+        sinks = list(g0.sinks)
+        for i, (src, snk) in enumerate(zip(sources, sinks)):
+            for seg_id in range(src.id, snk.id + 1):
+                g0.segment_by_id(seg_id).partition = i
+
+    chromosomes: List[pipeline.ChromosomeBuild] = []
+    for n in range(len(sources)):
+        start_id = sources[n].id
+        end_id = sinks[n].id
         with GLOBAL.phase("program_build"):
             _, junc_cn0 = get_junc_cn(g0, start_id, end_id)
-            if abs(float(junc_cn0[: end_id + 1, 1].sum())) < 1e-6:
-                out.append(None)
-                continue
-            progs = []
             for g in genomes:
-                _, junc_cn = get_junc_cn(g, start_id, end_id)
+                get_indel_bias(g, start_id, end_id)
+            if abs(float(junc_cn0[: end_id + 1, 1].sum())) < 1e-6:
+                chromosomes.append(pipeline.ChromosomeBuild(start_id, end_id, [], None))
+                continue
+            inversions, progs = [], []
+            for g in genomes:
+                inversions_k, junc_cn = get_junc_cn(g, start_id, end_id)
                 seg_cn = np.array(
-                    [
-                        g.segment_by_id(i).weight.copy_num
-                        for i in range(start_id, end_id + 1)
-                    ]
+                    [g.segment_by_id(i).weight.copy_num for i in range(start_id, end_id + 1)]
                 )
                 max_cn = sum(
-                    g.segment_by_id(i).weight.copy_num
-                    for i in range(start_id, end_id + 1)
+                    g.segment_by_id(i).weight.copy_num for i in range(start_id, end_id + 1)
                 )
+                inversions.append(inversions_k)
                 progs.append(
                     build_bfb_program(
                         start_id,
@@ -248,8 +267,18 @@ def extract_sc_programs(
                         0,
                     )
                 )
-            out.append(build_sc_program(progs, evolution))
-    return out
+            chromosomes.append(
+                pipeline.ChromosomeBuild(start_id, end_id, inversions, build_sc_program(progs, evolution))
+            )
+    return pipeline.CaseBuild(genomes, props, chromosomes, seconds=time.perf_counter() - begin)
+
+
+def extract_sc_programs(
+    lh_paths: str, edges: str = ""
+) -> List[Optional[BfbProgram]]:
+    """Per-chromosome single-cell block programs for one sample (None
+    where the chromosome is trivial): `build_sc_sample`'s."""
+    return build_sc_sample(lh_paths, edges).programs
 
 
 def run_sc_bfb_many(
@@ -263,11 +292,13 @@ def run_sc_bfb_many(
     ledger_dir: Optional[str] = None,
     mesh=None,
 ) -> List[ScBfbResult]:
-    """Batch single-cell pipeline: every sample's block programs are
-    solved through the shared batch solver (the exact prepass, then
-    case-stacked searches on `mesh`, by default the one device `device`
-    — pipeline.solve_programs_batch),
-    then each sample's host-side replay completes independently.
+    """Batch single-cell pipeline: each sample is built once
+    (`build_sc_sample`), every block program is solved in one call of
+    the shared batch solver (the exact prepass, then case-stacked
+    searches on `mesh`, by default the one device `device` —
+    pipeline.solve_programs_batch), then each sample is replayed
+    (`replay_sc_sample`) on a thread pool; its text reaches `out` in
+    input order. A sample's `seconds` is its build and replay time.
 
     `samples`: [{"lh_paths": "a.lh,b.lh", "edges": "..."}, ...].
     This is the batched replacement for looping the reference's
@@ -277,10 +308,12 @@ def run_sc_bfb_many(
     as one case-stacked group is where case parallelism pays most.
 
     `result_store` mirrors run_bfb_many's per-sample checkpoint/resume:
-    the key hashes every clone file plus the edges string."""
+    the key hashes every clone file plus the edges string. `juncs_info`
+    is accepted to match the CLI and the JAX signature and is ignored,
+    as `run_sc_bfb` ignores its own."""
     import os
+    from concurrent.futures import ThreadPoolExecutor
 
-    from ambigram_tpu_torch.engine.pipeline import solve_programs_batch
     from ambigram_tpu_torch.solver.search import resolve_device
 
     device = resolve_device(device)
@@ -298,44 +331,21 @@ def run_sc_bfb_many(
                 cached[i] = _sc_result_from_store(fn)
 
     active = [i for i in range(len(samples)) if i not in cached]
-    per_sample_progs = {
-        i: extract_sc_programs(
-            samples[i]["lh_paths"], samples[i].get("edges", "")
-        )
-        for i in active
-    }
-    flat: List[BfbProgram] = []
-    index: List[tuple] = []
-    for i in active:
-        for n, prog in enumerate(per_sample_progs[i]):
-            if prog is not None:
-                flat.append(prog)
-                index.append((i, n))
-    solutions = solve_programs_batch(flat, index, solver=solver, device=device, mesh=mesh)
-
-    # per-sample replay on a thread pool with order-preserving output
-    # buffers (same pattern as pipeline.run_bfb_many — the K per-clone
-    # replays of a sample are host work that releases the GIL)
-    from concurrent.futures import ThreadPoolExecutor
+    builds = {i: build_sc_sample(samples[i]["lh_paths"], samples[i].get("edges", "")) for i in active}
+    flat, index = pipeline.batch_programs({i: sample.programs for i, sample in builds.items()})
+    solutions = pipeline.solve_programs_batch(flat, index, solver=solver, device=device, mesh=mesh)
 
     results: List[Optional[ScBfbResult]] = [None] * len(samples)
     buffers: dict = {}
 
     def _replay_sample(i: int) -> None:
-        presolved = [
-            solutions.get((i, n)) for n in range(len(per_sample_progs[i]))
-        ]
+        begin = time.perf_counter()
+        sample = builds[i]
         buf = buffers[i] = _io.StringIO()
-        results[i] = run_sc_bfb(
-            samples[i]["lh_paths"],
-            juncs_info=juncs_info,
-            is_reversed=is_reversed,
-            solver="exact",
-            device=device,
-            out=buf,
-            edges=samples[i].get("edges", ""),
-            presolved=presolved,
+        results[i] = replay_sc_sample(
+            sample, [solutions.get((i, n)) for n in range(len(sample.chromosomes))], buf, is_reversed
         )
+        results[i].seconds = sample.seconds + time.perf_counter() - begin
 
     with ThreadPoolExecutor(max_workers=min(4, max(1, len(active)))) as pool:
         list(pool.map(_replay_sample, active))
@@ -343,8 +353,7 @@ def run_sc_bfb_many(
         if i in cached:
             results[i] = cached[i]
             continue
-        if out is not None and i in buffers:
-            out.write(buffers[i].getvalue())
+        out.write(buffers[i].getvalue())
         if ledger_dir is not None:
             # appended in input order on the main thread (in-thread
             # appends would interleave rows nondeterministically)
@@ -403,114 +412,67 @@ def run_sc_bfb(
     lp_prefix: str = "sample",
     edges: str = "",
     emit_lp: bool = False,
-    presolved: Optional[List] = None,
 ) -> ScBfbResult:
     """Joint BFB reconstruction of the clones named in `lh_paths` (comma
-    list) over the evolution DAG of `edges`. Each non-trivial
-    chromosome's block program is solved by `_solve` with the search on
-    `device` (a CUDA device without a card raises), unless `presolved`
-    holds its solution; then each clone's path is replayed from its own
-    slice of the solution."""
+    list) over the evolution DAG of `edges`: `build_sc_sample`, then
+    `pipeline._solve` on each non-trivial chromosome's block program
+    with the search on `device` (a CUDA device without a card raises),
+    then `replay_sc_sample`. `juncs_path` and `juncs_info` are accepted
+    to match the CLI and the JAX signature and are ignored, as the
+    reference's sc_bfb op reads no long-read junctions."""
     from ambigram_tpu_torch.solver.search import resolve_device
 
     device = resolve_device(device)
     begin = time.perf_counter()
     if out is None:
         out = _io.StringIO()
-    names = [s for s in lh_paths.split(",") if s]
-    genomes: List[Genome] = []
-    with GLOBAL.phase("parse"):
-        for name in names:
-            g = Genome.from_lh(name)
-            g.calculate_hap_depth()
-            g.calculate_copy_num()
-            genomes.append(g)
-        K = len(genomes)
-        # evolution DAG: user-supplied edges, else all-pairs default
-        evolution = parse_evolution_edges(edges, names)
+    sample = build_sc_sample(lh_paths, edges)
+    solutions = pipeline.solve_each(sample.programs, solver, device, emit_lp, lp_prefix)
+    result = replay_sc_sample(sample, solutions, out, is_reversed, print_all)
+    result.seconds = time.perf_counter() - begin
+    if ledger_dir is not None:
+        _append_sc_ledger(result, lh_paths, ledger_dir)
+    return result
 
-        g0 = genomes[0]
-        props = parse_bfb_props(lh_paths)  # comma-joined name: degrades to empty
 
-        sources = list(g0.sources)
-        sinks = list(g0.sinks)
-        for i, (src, snk) in enumerate(zip(sources, sinks)):
-            for seg_id in range(src.id, snk.id + 1):
-                g0.segment_by_id(seg_id).partition = i
-
+def replay_sc_sample(
+    sample: pipeline.CaseBuild,
+    solutions: List,
+    out,
+    is_reversed: bool = False,
+    print_all: bool = False,
+) -> ScBfbResult:
+    """Everything `run_sc_bfb` does after its solve: each clone's path
+    replayed from its own slice of its chromosome's solution
+    (`solutions[n]`, None where the chromosome is trivial) and written
+    to `out`, then each clone's translocation merge. The caller sets
+    `seconds`."""
+    genomes = sample.genomes
+    K = len(genomes)
     result = ScBfbResult(genomes=genomes)
     result.paths = [[] for _ in range(K)]
 
-    for n in range(len(sources)):
-        start_id = sources[n].id
-        end_id = sinks[n].id
-        with GLOBAL.phase("program_build"):
-            inversions0, junc_cn0 = get_junc_cn(g0, start_id, end_id)
-            for g in genomes:
-                get_indel_bias(g, start_id, end_id)
-
-            inversion_cn_sum = float(junc_cn0[: end_id + 1, 1].sum())
-            trivial = abs(inversion_cn_sum) < 1e-6
-            if not trivial:
-                progs = []
-                for g in genomes:
-                    _, junc_cn = get_junc_cn(g, start_id, end_id)
-                    seg_cn = np.array(
-                        [g.segment_by_id(i).weight.copy_num for i in range(start_id, end_id + 1)]
-                    )
-                    max_cn = sum(
-                        g.segment_by_id(i).weight.copy_num for i in range(start_id, end_id + 1)
-                    )
-                    progs.append(
-                        build_bfb_program(
-                            start_id,
-                            end_id,
-                            seg_cn,
-                            junc_cn[start_id : end_id + 1, 1],
-                            max_cn,
-                            0,
-                        )
-                    )
-                sc_prog = build_sc_program(progs, evolution)
-        if trivial:
+    for chrom, sol in zip(sample.chromosomes, solutions):
+        start_id, end_id, prog = chrom.start, chrom.end, chrom.program
+        if prog is None or sol.status not in ("optimal", "heuristic"):
+            if prog is not None:
+                out.write("ILP is unsolvable.\n")
             for k, g in enumerate(genomes):
-                path = [g.segment_by_id(i).pos for i in range(start_id, end_id + 1)]
-                result.paths[k].append(path)
+                result.paths[k].append([g.segment_by_id(i).pos for i in range(start_id, end_id + 1)])
             continue
 
-        if emit_lp:
-            # mirror of BFB_ILP_SC's artifact (LGM.cpp:5091-5092)
-            from ambigram_tpu_torch.io.program_io import write_lp, write_mps
-
-            write_lp(sc_prog, lp_prefix + ".lp")
-            write_mps(sc_prog, lp_prefix + ".mps")
-        from ambigram_tpu_torch.engine.pipeline import _solve
-
-        if presolved is not None and n < len(presolved) and presolved[n] is not None:
-            sol = presolved[n]
-        else:
-            with GLOBAL.phase("solve"):
-                sol = _solve(sc_prog, solver, device)
-        if sol.status not in ("optimal", "heuristic"):
-            out.write("ILP is unsolvable.\n")
-            for k, g in enumerate(genomes):
-                path = [g.segment_by_id(i).pos for i in range(start_id, end_id + 1)]
-                result.paths[k].append(path)
-            continue
-
-        T2 = progs[0].num_vars
+        T2 = prog.num_vars // K
+        entries = sorted_key_order(prog.pairs)
         for k, g in enumerate(genomes):
             element_k = sol.x[k * T2 : (k + 1) * T2]
-            entries = sorted_key_order(progs[0].pairs)
             with GLOBAL.phase("replay"):
                 adj, node2pat, node2loop = construct_dag(entries, element_k)
-                inversions_k, _ = get_junc_cn(g, start_id, end_id)
                 path: VertexPath = replay_bfb(
                     g,
                     adj,
                     node2pat,
                     node2loop,
-                    inversions_k,
+                    chrom.inversions[k],
                     is_reversed=is_reversed,
                     print_all=print_all,
                     out=out,
@@ -519,6 +481,7 @@ def run_sc_bfb(
             result.paths[k].append(path)
 
     # post-BFB translocation merging per graph (localhap.cpp:667-670)
+    props = sample.props
     if props.ins_mode == 2 or props.con_mode == 2:
         from ambigram_tpu_torch.engine.trx import translocation_bfb
 
@@ -529,9 +492,6 @@ def run_sc_bfb(
     result.path_strings = [
         [format_bfb(p) for p in result.paths[k]] for k in range(K)
     ]
-    result.seconds = time.perf_counter() - begin
-    if ledger_dir is not None:
-        _append_sc_ledger(result, lh_paths, ledger_dir)
     return result
 
 

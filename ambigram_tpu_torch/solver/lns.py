@@ -41,6 +41,7 @@ the certificate.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -48,6 +49,12 @@ import numpy as np
 from ambigram_tpu_torch.engine.ilp import BfbProgram, g_csr
 from ambigram_tpu_torch.solver.exact import have_exact_solver, milp_lad
 from ambigram_tpu_torch.utils.profiling import GLOBAL
+
+
+def default_lns_budget() -> float:
+    """The LNS polish's wall-clock budget in seconds where the caller
+    gives none: AMBIGRAM_LNS_BUDGET, else 45. Read at every call."""
+    return float(os.environ.get("AMBIGRAM_LNS_BUDGET", 45.0))
 
 
 def _num_blocks(prog: BfbProgram) -> int:
@@ -420,7 +427,6 @@ def lns_polish(
     (solver/search.py), the full LNS usually just proves no-improvement
     at ~10 s/case in screen LPs — the probe caps that at two
     neighborhoods, and an improvement escalates to a full polish."""
-    import os
     import time
 
     x = np.asarray(x0, dtype=np.int64).copy()
@@ -429,7 +435,7 @@ def lns_polish(
         vio = float(prog.hard_violation(x.astype(np.float64)))
         return x, eps, vio
     if time_budget is None:
-        time_budget = float(os.environ.get("AMBIGRAM_LNS_BUDGET", 45.0))
+        time_budget = default_lns_budget()
     t_start = time.perf_counter()
 
     def left() -> float:

@@ -373,7 +373,7 @@ def _finish_solution(
     neighborhood, so it gets only the cheap LNS probe (escalating on
     improvement); a BUDGET-STARVED one, or one with a hard violation,
     goes straight to the full polish."""
-    from ambigram_tpu_torch.solver.lns import lns_polish
+    from ambigram_tpu_torch.solver.lns import default_lns_budget, lns_polish
 
     with GLOBAL.phase("solve.measure"):
         x_int = np.round(x).astype(np.int64)
@@ -388,11 +388,7 @@ def _finish_solution(
             else:
                 GLOBAL.count("lns.probes")
                 t0 = time.perf_counter()
-                full = (
-                    lns_budget
-                    if lns_budget is not None
-                    else float(os.environ.get("AMBIGRAM_LNS_BUDGET", 45.0))
-                )
+                full = lns_budget if lns_budget is not None else default_lns_budget()
                 with GLOBAL.phase("solve.lns.probe"):
                     x_p, eps_p, vio_p = lns_polish(
                         prog, x_int, target=tgt, time_budget=min(6.0, full), probe=True
