@@ -3,10 +3,13 @@
 Copied with no change of meaning from ambigram_tpu/solver/search.py,
 whose module imports jax: the epsilon lattice and the LP certificate,
 population seeding, and the paired and triple move catalogues. The
-tests hold every function here equal to its original. `_lp_solve`
-takes G's CSR from the program (engine/ilp.py `g_csr`) where the
-original converts the dense G on every call; the LP it hands HiGHS is
-the same.
+tests hold every function here equal to its original, but the seeding
+LP. `_lp_solve` states it in equality form, each residual row once as
+R x - e+ + e- = c, where the original lifts |R x - c| <= e into 2E
+inequality rows, and takes G's CSR from the program (engine/ilp.py
+`g_csr`) where the original converts the dense G on every call. The
+optimum is the same; HiGHS may return another optimal vertex than the
+original's, and so other LP-rounding seeds.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import numpy as np
 
 from ambigram_tpu_torch.engine.enumerate import pair_index
 from ambigram_tpu_torch.engine.ilp import BfbProgram, g_csr
+from ambigram_tpu_torch.utils.profiling import GLOBAL
 
 
 def half_ceil(x: float, eps: float = 1e-6) -> float:
@@ -71,9 +75,16 @@ def lp_lower_bound(prog: BfbProgram) -> Optional[float]:
 
 
 def _lp_solve(prog: BfbProgram):
-    """LP-relaxation lower bound on the integer epsilon sum (sparse
-    block assembly so large programs stay fast). None if scipy is
-    unavailable."""
+    """LP-relaxation lower bound on the integer epsilon sum, in equality
+    form: the E residual rows R = [A_seg; A_fbi; coupling] once each, as
+    R x - e+ + e- = c over nonnegative e+ and e-, minimising
+    sum(e+) + sum(e-); G's finite sides as inequality rows; x within
+    [0, x_ub]. At an optimum e+ + e- = |R x - c| row by row, so the
+    optimum is that of the lifted form ±(R x - c) <= e over 2E rows,
+    which takes HiGHS more simplex iterations (about 1.75 times as many
+    on fractional targets); the vertex may be another optimal one.
+    Counts `lp.solves` and HiGHS's iterations `lp.iterations`. None if
+    scipy is unavailable."""
     try:
         from scipy.optimize import linprog
         from scipy.sparse import coo_matrix, csr_matrix, eye, hstack, vstack
@@ -100,25 +111,33 @@ def _lp_solve(prog: BfbProgram):
         ).tocsr()
         A_sp = vstack([A_sp, coup], format="csr")
     E = A_sp.shape[0]
-    c = np.zeros(V + E)
+    c = np.zeros(V + 2 * E)
     c[V:] = 1.0
     I = eye(E, format="csr")
-    blocks = [hstack([-A_sp, -I]), hstack([A_sp, -I])]
-    b_parts = [-c_res, c_res]
+    A_eq = hstack([A_sp, -I, I], format="csr")
+    blocks, b_parts = [], []
     if prog.G.shape[0]:
         G_sp = g_csr(prog)
         fin_ub = np.isfinite(prog.g_ub)
         if fin_ub.any():
-            blocks.append(hstack([G_sp[fin_ub], csr_matrix((int(fin_ub.sum()), E))]))
+            blocks.append(G_sp[fin_ub])
             b_parts.append(prog.g_ub[fin_ub])
         fin_lb = np.isfinite(prog.g_lb)
         if fin_lb.any():
-            blocks.append(hstack([-G_sp[fin_lb], csr_matrix((int(fin_lb.sum()), E))]))
+            blocks.append(-G_sp[fin_lb])
             b_parts.append(-prog.g_lb[fin_lb])
-    A_ub = vstack(blocks, format="csr")
-    b_ub = np.concatenate(b_parts)
-    bounds = [(0, ub) for ub in prog.x_ub] + [(0, None)] * E
-    return linprog(c, A_ub=A_ub, b_ub=b_ub, bounds=bounds, method="highs")
+    A_ub = b_ub = None
+    if blocks:
+        G_rows = vstack(blocks, format="csr")
+        A_ub = hstack([G_rows, csr_matrix((G_rows.shape[0], 2 * E))], format="csr")
+        b_ub = np.concatenate(b_parts)
+    bounds = np.zeros((V + 2 * E, 2))
+    bounds[:V, 1] = prog.x_ub
+    bounds[V:, 1] = np.inf
+    res = linprog(c, A_ub=A_ub, b_ub=b_ub, A_eq=A_eq, b_eq=c_res, bounds=bounds, method="highs")
+    GLOBAL.count("lp.solves")
+    GLOBAL.count("lp.iterations", float(res.nit))
+    return res
 
 
 def _pair_idx(prog: BfbProgram, i: int, j: int) -> int:

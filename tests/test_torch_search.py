@@ -1,7 +1,10 @@
 """The port's host helpers, descent, search and host tail against the
 JAX package.
 
-The host helpers are copies and must return equal arrays. The tiered
+The host helpers are copies and must return equal arrays, but for the
+seeding LP, which the port states in equality form: its bound and
+certificate equal JAX's, its solution is an optimum of JAX's lifted
+form, and the population's LP-rounding rows round it. The tiered
 descent is deterministic, so from identical inputs it must match JAX
 bitwise. A whole search draws its kicks from a torch.Generator, not
 jax.random, so it is judged on quality: it must reach the solve_exact
@@ -40,11 +43,27 @@ def small_search(monkeypatch):
     monkeypatch.setenv("AMBIGRAM_SEARCH_SWEEPS", "64")
 
 
+def lp_roundings(prog, x_frac, Vp, seed):
+    """Population rows 4-9 as `_seed_case` places them: the LP
+    solution's rounding, its floor and four randomized roundings."""
+    rows = np.zeros((6, Vp), dtype=np.float32)
+    rr = np.random.default_rng(seed + 1)
+    floor = np.floor(x_frac)
+    members = [np.round(x_frac), floor] + [floor + (rr.random(len(x_frac)) < x_frac - floor) for _ in range(4)]
+    for row, member in zip(rows, members):
+        row[: prog.num_vars] = np.clip(member, 0, prog.x_ub)
+    return rows
+
+
 @pytest.mark.parametrize("name", NAMES + ["sc_k3"])
 def test_host_helpers_match_jax(name, tmp_path):
     """`sc_k3`: a K=3 block program of the benchmark's recipe at S=10,
     each package's own build, so the port's seeding LP reads the CSR its
-    builders attach."""
+    builders attach. The port states the seeding LP in equality form
+    and the JAX package in lifted form: the same optimum, but HiGHS may
+    stop at another optimal vertex, so the port's LP solution is held to
+    the lifted form's rows and optimum, and the LP-rounding rows of the
+    population to that solution."""
     if name == "sc_k3":
         prog, jprog = recipe_programs(tmp_path)
     else:
@@ -59,9 +78,19 @@ def test_host_helpers_match_jax(name, tmp_path):
     x_ub[: prog.num_vars] = prog.x_ub
     X_t, lb_t = host._seed_case(prog, Vp, x_ub, 12, seed=4)
     X_j, lb_j = jsearch._seed_case(jprog, Vp, x_ub, 12, seed=4)
-    np.testing.assert_array_equal(X_t, X_j)
-    assert lb_t == lb_j == host.lp_lower_bound(prog) == jsearch.lp_lower_bound(jprog)
-    np.testing.assert_array_equal(host.lp_relaxation(prog)[1], jsearch.lp_relaxation(jprog)[1])
+    np.testing.assert_array_equal(X_t[:4], X_j[:4])
+    np.testing.assert_array_equal(X_t[10:], X_j[10:])
+    bound, x_frac = host.lp_relaxation(prog)
+    np.testing.assert_array_equal(X_t[4:10], lp_roundings(prog, x_frac, Vp, seed=4))
+    assert lb_t == bound == host.lp_lower_bound(prog)
+    assert lb_j == jsearch.lp_lower_bound(jprog)
+    assert lb_t == pytest.approx(lb_j, rel=1e-9, abs=1e-9)
+    # x_frac with e = |R x - c| is a point of the lifted LP: G's rows and
+    # the bounds hold, and its objective there is the optimum
+    gx = np.asarray(jprog.G, dtype=np.float64) @ x_frac
+    assert np.all(gx <= jprog.g_ub + 1e-9) and np.all(gx >= jprog.g_lb - 1e-9)
+    assert np.all(x_frac >= -1e-9) and np.all(x_frac <= jprog.x_ub + 1e-9)
+    assert float(jprog.residual_objective(x_frac)) == pytest.approx(lb_j, rel=1e-9, abs=1e-9)
     assert host.eps_quantum(prog) == jsearch.eps_quantum(jprog)
     assert host.certified_bound(prog, lb_t) == jsearch.certified_bound(jprog, lb_j)
     for v in (0.0, 0.2, 0.5, 1.49, 2.0000001, 7.75):
