@@ -49,7 +49,7 @@ def f32_reports(window):
                 for fn in case.lh:
                     with open(fn) as f:
                         texts.append(f.read())
-                programs[case.key] = reference.Program([reference.parse_lh(t) for t in texts])
+                programs[case.key] = reference.case_program(texts)[0]
             prog = programs[case.key]
             ans = dataclasses.replace(ans, eps=prog.eps32(ans.x) - prog.bias)
         answers.append((case, ans))

@@ -18,11 +18,17 @@ It also gives the LP relaxation's bound of each case, which no integer
 answer can beat; the answer's epsilon over it (`lp_ratio`) is the
 benchmark's measure of answer quality.
 
+A bulk LH file of the TRX-BFB concatenation mode (`PROP C1:<chrA>:<chrB>`)
+holds two intervals joined by one translocation junction; BFB runs on
+the arm they fuse into (`fuse_c1`), and a path in the original ids is
+judged on that arm (`Fusion.fused_path`).
+
 It imports nothing of the program.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -325,3 +331,161 @@ def judge(prog: Program, lp: float, x: np.ndarray, reported_eps: float, reported
         lp_ratio=eps / lp if lp > 0 else (1.0 if eps == 0 else np.inf),
         eps=eps,
     )
+
+
+# ------------------------------------------------- TRX-BFB concatenation
+
+
+def _flip(strand: str) -> str:
+    return "-" if strand == "+" else "+"
+
+
+@dataclass
+class Fusion:
+    """How the two intervals of a C1 file fuse into one arm: each
+    original segment's fused id and whether its arm runs reversed there,
+    and the translocation junction's two ends (original ids)."""
+
+    fused_of: Dict[int, Tuple[int, bool]]
+    arm_of: Dict[int, int]  # 0: the arm the junction leaves, 1: the one it enters
+    ends: Tuple[int, int]
+
+    def fused_path(self, path_string: str) -> Tuple[List[Tuple[int, str]], str]:
+        """The steps of a path in original ids, `||` where it changes arm,
+        as steps of the fused arm; with why it is no such path ("" if it
+        is one). A `||` is accepted only between the translocation's two
+        ends, and the path changes arm only there and only with one."""
+        steps: List[Tuple[int, str]] = []
+        seps: List[str] = []
+        at = 0
+        for m in re.finditer(r"(\|{0,2})(\d+)([+-])", path_string):
+            if m.start() != at or (not steps and m.group(1)):
+                return [], "unreadable at %d" % at
+            at = m.end()
+            seg, strand = int(m.group(2)), m.group(3)
+            if seg not in self.fused_of:
+                return [], "step %d%s is no segment of the two arms" % (seg, strand)
+            if steps:
+                seps.append(m.group(1))
+            steps.append((seg, strand))
+        if at != len(path_string) or not steps:
+            return [], "unreadable at %d" % at
+        for (s1, d1), (s2, d2), sep in zip(steps, steps[1:], seps):
+            crosses = self.arm_of[s1] != self.arm_of[s2]
+            if crosses != (sep == "||"):
+                return [], "%d%s %s %d%s: '||' marks a change of arm and nothing else" % (s1, d1, sep, s2, d2)
+            if crosses and {s1, s2} != set(self.ends):
+                return [], "%d%s -> %d%s is not the translocation %d|%d" % (s1, d1, s2, d2, *self.ends)
+        fused = []
+        for seg, strand in steps:
+            f, rev = self.fused_of[seg]
+            fused.append((f, _flip(strand) if rev else strand))
+        return fused, ""
+
+    def fused_strings(self, path_strings: Sequence[str]) -> List[str]:
+        """Each path as a path string of the fused arm; "" (no walk)
+        where it is no path of the two arms."""
+        out = []
+        for ps in path_strings:
+            steps, fault = self.fused_path(ps)
+            out.append("" if fault else "".join("%d%s" % s for s in steps))
+        return out
+
+
+def c1_chromosomes(text: str) -> Optional[Tuple[str, str]]:
+    """The two chromosomes of a file's `PROP C1:<chrA>:<chrB>`, or None."""
+    for line in text.splitlines():
+        tok = line.split()
+        if tok and tok[0] == "PROP":
+            for prop in tok[1:]:
+                parts = prop.split(":")
+                if parts[0] == "C1" and len(parts) == 3:
+                    return parts[1], parts[2]
+    return None
+
+
+def fuse_c1(text: str) -> Tuple[str, Fusion]:
+    """A C1 LH file as the single-interval LH file of its fused arm, and
+    the map between them. As upstream's concatBeforeBFB reads such a
+    file: the first junction between the two chromosomes (either way)
+    is the translocation; the arm of its first end runs from its source
+    to that end (strand "+"), or from its sink down to it ("-"); then the
+    arm of its second end, from that end to its sink ("+") or down to
+    its source ("-"). A reversed arm's segments change strand in the
+    fused ids. The fold-back junctions go over in fused ids; the
+    translocation becomes the adjacency it is there and is left out. The
+    reference reads files whose fused arm holds every segment."""
+    chroms = c1_chromosomes(text)
+    if chroms is None:
+        raise ValueError("no PROP C1:<chrA>:<chrB> line")
+    head: List[str] = []
+    sources: List[int] = []
+    sinks: List[int] = []
+    segs: Dict[int, Tuple[str, List[str]]] = {}  # id -> (chromosome, the SEG line's tokens)
+    juncs: List[List[str]] = []
+    for line in text.splitlines():
+        tok = line.split()
+        if not tok:
+            continue
+        if tok[0] == "SEG":
+            segs[int(tok[1].split(":")[1])] = (tok[1].split(":")[2], tok)
+        elif tok[0] == "JUNC":
+            juncs.append(tok)
+        elif tok[0] == "SOURCE":
+            sources = [int(v) for v in tok[1].split(",")]
+        elif tok[0] == "SINK":
+            sinks = [int(v) for v in tok[1].split(",")]
+        elif tok[0] != "PROP":
+            head.append(line)
+
+    def end(field: str) -> Tuple[int, str]:
+        parts = field.split(":")
+        return int(parts[1]), parts[2]
+
+    trx = None
+    for k, tok in enumerate(juncs):
+        (s1, _), (s2, _) = end(tok[1]), end(tok[2])
+        if {segs[s1][0], segs[s2][0]} == set(chroms) and chroms[0] != chroms[1]:
+            trx = k
+            break
+    if trx is None:
+        raise ValueError("no junction joins %s and %s" % chroms)
+    (s_id, s_dir), (e_id, e_dir) = end(juncs[trx][1]), end(juncs[trx][2])
+
+    def interval(seg: int) -> Tuple[int, int]:
+        for lo, hi in zip(sources, sinks):
+            if lo <= seg <= hi:
+                return lo, hi
+        raise ValueError("segment %d lies in no interval" % seg)
+
+    (a_lo, a_hi), (b_lo, b_hi) = interval(s_id), interval(e_id)
+    order: List[Tuple[int, bool]] = []
+    order += [(i, False) for i in range(a_lo, s_id + 1)] if s_dir == "+" else [(i, True) for i in range(a_hi, s_id - 1, -1)]
+    order += [(i, False) for i in range(e_id, b_hi + 1)] if e_dir == "+" else [(i, True) for i in range(e_id, b_lo - 1, -1)]
+    if sorted(i for i, _ in order) != sorted(segs):
+        raise ValueError("the fused arm leaves segments out: the reference reads arms joined end to end")
+    fused_of = {seg: (f + 1, rev) for f, (seg, rev) in enumerate(order)}
+    arm_of = {seg: int(not (a_lo <= seg <= a_hi)) for seg in segs}
+
+    def fused_end(field: str) -> str:
+        seg, strand = end(field)
+        f, rev = fused_of[seg]
+        return "H:%d:%s" % (f, _flip(strand) if rev else strand)
+
+    lines = head + ["SOURCE 1", "SINK %d" % len(order)]
+    for f, (seg, _) in enumerate(order):
+        tok = segs[seg][1]
+        lines.append(" ".join(["SEG", "H:%d:%s" % (f + 1, ":".join(tok[1].split(":")[2:]))] + tok[2:]))
+    for k, tok in enumerate(juncs):
+        if k != trx:
+            lines.append(" ".join(["JUNC", fused_end(tok[1]), fused_end(tok[2])] + tok[3:]))
+    return "\n".join(lines) + "\n", Fusion(fused_of, arm_of, (s_id, e_id))
+
+
+def case_program(texts: Sequence[str]) -> Tuple[Program, Optional[Fusion]]:
+    """The program of a case's LH files: one clone a file, or, for one
+    C1 file, the single clone of its fused arm with the map to it."""
+    if len(texts) == 1 and c1_chromosomes(texts[0]) is not None:
+        fused, fusion = fuse_c1(texts[0])
+        return Program([parse_lh(fused)]), fusion
+    return Program([parse_lh(t) for t in texts]), None

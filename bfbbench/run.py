@@ -9,8 +9,8 @@ work is, which of the recipe's samples a cycle holds, in what order).
 The run generates the cycle's samples into a fresh directory under
 TMPDIR, warms the program up with one unit of them (the first listed
 sample, or the manifest), then runs whole units back to back, closed
-loop, through the program's own entry (`run_sc_bfb` or
-`run_sc_bfb_many`, solver "auto" on the card), until the first end of a
+loop, through the program's own entry (`run_sc_bfb`, `run_sc_bfb_many`
+or `run_bfb`, solver "auto" on the card), until the first end of a
 cycle after `--seconds` have passed. The reference (`reference.py`) then judges
 every answer, and each metric's reader (`metrics/<name>.py`) computes
 its number: with `--trace 0` the cell's end-to-end metrics, with
@@ -26,6 +26,7 @@ import time
 _PROCESS_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import contextlib  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -46,7 +47,7 @@ if ROOT not in sys.path:
 
 import numpy as np  # noqa: E402
 
-from bfbbench import gen, reference  # noqa: E402
+from bfbbench import gen, gen_trx, reference  # noqa: E402
 from bfbbench import trace as device_trace  # noqa: E402
 
 # top-level module names no run may load: the JAX package and JAX itself
@@ -102,7 +103,19 @@ class Case:
 
 def _write(recipe: dict, case_seed: int, index: int, prefix: str) -> List[str]:
     """The sample the configuration's recipe makes from `case_seed` (its
-    `index` in the traffic's list picks the clones' topology)."""
+    `index` in the traffic's list picks the clones' topology, or the
+    orientation in which a C1 case joins its second arm)."""
+    if recipe["kind"] == "bfb_c1":
+        orientations = recipe["orientations"]
+        case = gen_trx.simulate_c1_case(
+            seed=case_seed,
+            arms=recipe["arms"],
+            chroms=recipe["chroms"],
+            coverage=recipe["coverage"],
+            noise=recipe["noise"],
+            orientation=orientations[index % len(orientations)],
+        )
+        return gen_trx.write_c1_case(case, prefix)
     if recipe["kind"] != "sc":
         raise ValueError("unknown generator kind %r" % recipe["kind"])
     topologies = recipe["topologies"]
@@ -163,7 +176,8 @@ class SolutionRecorder:
     """The single-cell entries return paths only. To judge the epsilon
     of their answers, this keeps what `pipeline._solve` and
     `pipeline.solve_programs_batch` return to them, passing every call
-    and result through untouched."""
+    and result through untouched. The bulk entry takes its one solve's
+    answer from here too, as the single-cell one does."""
 
     def __init__(self):
         from ambigram_tpu_torch.engine import pipeline
@@ -246,6 +260,26 @@ def make_entry(cell: Cell, device: str, recorder: Optional[SolutionRecorder]):
             return [_sc_answer(r, sols.get((i, 0))) for i, r in enumerate(results)]
 
         return many
+    if op == "bfb":
+        from ambigram_tpu_torch.engine.pipeline import run_bfb
+
+        if unit != "case":
+            raise ValueError("no cell runs bfb %ss" % unit)
+
+        def bulk(cases):
+            recorder.take()
+            # the TRX modes write the rewritten graph to ./new.lh: keep it
+            # beside the case, out of the checkout
+            with contextlib.chdir(os.path.dirname(cases[0].lh[0])):
+                res = run_bfb(cases[0].lh[0], **common)
+            solves, _ = recorder.take()
+            if len(solves) != 1:
+                raise RuntimeError("run_bfb made %d calls of pipeline._solve, not 1" % len(solves))
+            if len(res.path_strings) != 1 or res.chromosomes[0].trivial:
+                return [Answer(None)]
+            return [Answer(np.asarray(solves[0].x), float(solves[0].objective), (res.path_strings[0],))]
+
+        return bulk
     raise ValueError("unknown op %r" % op)
 
 
@@ -294,7 +328,7 @@ def judge(window: Window, limits: dict) -> Tuple[List[Optional[reference.Verdict
     """Judge every answer of the window with the reference; returns the
     verdicts (None for a missing answer), the numbers compared, and how
     many answers fail one of their limits."""
-    programs: Dict[str, Tuple[reference.Program, float]] = {}
+    programs: Dict[str, Tuple[reference.Program, float, Optional[reference.Fusion]]] = {}
     verdicts: List[Optional[reference.Verdict]] = []
     for case, ans in window.answers:
         if case.key not in programs:
@@ -302,14 +336,16 @@ def judge(window: Window, limits: dict) -> Tuple[List[Optional[reference.Verdict
             for fn in case.lh:
                 with open(fn) as f:
                     texts.append(f.read())
-            prog = reference.Program([reference.parse_lh(t) for t in texts])
-            programs[case.key] = (prog, prog.lp_bound())
-        prog, lp = programs[case.key]
+            prog, fusion = reference.case_program(texts)
+            programs[case.key] = (prog, prog.lp_bound(), fusion)
+        prog, lp, fusion = programs[case.key]
         if ans.x is None:
             verdicts.append(None)
             continue
-        # the program reports its epsilon after the bias
-        verdicts.append(reference.judge(prog, lp, ans.x, ans.eps + prog.bias, None, ans.paths))
+        # the program reports its epsilon after the bias; a fused case's
+        # path is judged on the fused arm
+        paths = ans.paths if fusion is None else fusion.fused_strings(ans.paths)
+        verdicts.append(reference.judge(prog, lp, ans.x, ans.eps + prog.bias, None, paths))
     found = [v for v in verdicts if v is not None]
 
     def worst(attr):
