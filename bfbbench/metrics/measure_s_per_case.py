@@ -1,7 +1,7 @@
 """measure_s_per_case: seconds a case in the host tail's measurement of
 the search's incumbent (solver/search.py:_finish_solution: its eps, its
-hard violation, its certified target; a program's first hard violation
-lifts its G to float, engine/ilp.py:_g_lift).
+hard violation, its certified target; the hard violation is the product
+of x with the CSR of the program's hard rows G, engine/ilp.py:g_csr).
 
 The program's phase solve.measure, summed over the window and divided by
 its cases; None where the program has no such phase. In a cohort the

@@ -26,7 +26,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 if os.path.dirname(HERE) not in sys.path:
     sys.path.insert(0, os.path.dirname(HERE))
 
-from bfbbench import reference, run  # noqa: E402
+from bfbbench import run  # noqa: E402
 
 # the controls: `eps_f32` puts the reference in the program's place for
 # the epsilon, computed in float32, the precision below the
@@ -37,19 +37,17 @@ from bfbbench import reference, run  # noqa: E402
 CONTROLS = ("eps_f32", "chain_edges", "lns_off")
 
 
-def f32_reports(window):
+def f32_reports(window, cell):
     """The window with each answer's reported epsilon replaced by the
-    reference's float32 epsilon of its x, less the bias."""
+    reference's float32 epsilon of its x, less the bias, each case read
+    as the cell's generator kind reads it."""
+    kind = run.cell_kind(cell)
     programs = {}
     answers = []
     for case, ans in window.answers:
         if ans.x is not None:
             if case.key not in programs:
-                texts = []
-                for fn in case.lh:
-                    with open(fn) as f:
-                        texts.append(f.read())
-                programs[case.key] = reference.case_program(texts)[0]
+                programs[case.key] = run.case_program(kind, case)[0]
             prog = programs[case.key]
             ans = dataclasses.replace(ans, eps=prog.eps32(ans.x) - prog.bias)
         answers.append((case, ans))
@@ -93,8 +91,8 @@ def readings(workload: str, seeds, seconds: float, control: str = "", device: st
                 walls.clear()
                 window = run.run_window(cell, timed, cycle, seconds, sync)
                 if control == "eps_f32":
-                    window = f32_reports(window)
-                verdicts, numbers, failed = run.judge(window, cell.limits)
+                    window = f32_reports(window, cell)
+                verdicts, numbers, failed = run.judge(window, cell)
             finally:
                 shutil.rmtree(workdir, ignore_errors=True)
             found = [v for v in verdicts if v is not None]

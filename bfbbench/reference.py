@@ -21,7 +21,9 @@ benchmark's measure of answer quality.
 A bulk LH file of the TRX-BFB concatenation mode (`PROP C1:<chrA>:<chrB>`)
 holds two intervals joined by one translocation junction; BFB runs on
 the arm they fuse into (`fuse_c1`), and a path in the original ids is
-judged on that arm (`Fusion.fused_path`).
+judged on that arm (`Fusion.fused_path`). Which reading a case takes is
+its configuration's generator kind's (`kinds/<kind>.py`), not this
+module's.
 
 It imports nothing of the program.
 """
@@ -480,12 +482,3 @@ def fuse_c1(text: str) -> Tuple[str, Fusion]:
         if k != trx:
             lines.append(" ".join(["JUNC", fused_end(tok[1]), fused_end(tok[2])] + tok[3:]))
     return "\n".join(lines) + "\n", Fusion(fused_of, arm_of, (s_id, e_id))
-
-
-def case_program(texts: Sequence[str]) -> Tuple[Program, Optional[Fusion]]:
-    """The program of a case's LH files: one clone a file, or, for one
-    C1 file, the single clone of its fused arm with the map to it."""
-    if len(texts) == 1 and c1_chromosomes(texts[0]) is not None:
-        fused, fusion = fuse_c1(texts[0])
-        return Program([parse_lh(fused)]), fusion
-    return Program([parse_lh(t) for t in texts]), None

@@ -6,6 +6,8 @@ The cell is a `workloads` entry of BENCHMARK.json: a configuration
 (`configs/<name>.json`: the sample generator's recipe and the entry
 users call) under a traffic mix (`traffic/<name>.json`: what one unit of
 work is, which of the recipe's samples a cycle holds, in what order).
+The recipe's generator kind (`kinds/<kind>.py`) writes each sample's LH
+files and gives the reference's reading of them.
 The run generates the cycle's samples into a fresh directory under
 TMPDIR, warms the program up with one unit of them (the first listed
 sample, or the manifest), then runs whole units back to back, closed
@@ -47,7 +49,7 @@ if ROOT not in sys.path:
 
 import numpy as np  # noqa: E402
 
-from bfbbench import gen, gen_trx, reference  # noqa: E402
+from bfbbench import reference  # noqa: E402
 from bfbbench import trace as device_trace  # noqa: E402
 
 # top-level module names no run may load: the JAX package and JAX itself
@@ -101,33 +103,49 @@ class Case:
     listed: int  # its place in the traffic's list
 
 
-def _write(recipe: dict, case_seed: int, index: int, prefix: str) -> List[str]:
-    """The sample the configuration's recipe makes from `case_seed` (its
-    `index` in the traffic's list picks the clones' topology, or the
-    orientation in which a C1 case joins its second arm)."""
-    if recipe["kind"] == "bfb_c1":
-        orientations = recipe["orientations"]
-        case = gen_trx.simulate_c1_case(
-            seed=case_seed,
-            arms=recipe["arms"],
-            chroms=recipe["chroms"],
-            coverage=recipe["coverage"],
-            noise=recipe["noise"],
-            orientation=orientations[index % len(orientations)],
-        )
-        return gen_trx.write_c1_case(case, prefix)
-    if recipe["kind"] != "sc":
-        raise ValueError("unknown generator kind %r" % recipe["kind"])
-    topologies = recipe["topologies"]
-    sc = gen.simulate_sc_case(
-        seed=case_seed,
-        n_clones=recipe["n_clones"],
-        n_segments=recipe["n_segments"],
-        coverage=recipe["coverage"],
-        noise=recipe["noise"],
-        topology=topologies[index % len(topologies)],
-    )
-    return gen.write_sc_clones(sc, prefix + "_c")
+KINDS = os.path.join(HERE, "kinds")
+
+
+def load_file(path: str, module_name: str):
+    """The module of the Python file `path`, run afresh."""
+    spec = importlib.util.spec_from_file_location(module_name.replace(".", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load_kind(name: str):
+    """Generator kind `name`: `<KINDS>/<name>.py`, whose `write(recipe,
+    case_seed, index, prefix)` writes a case's LH files and returns
+    their names (`index`, the case's place in the traffic's list, may
+    pick among the recipe's variants), and whose `case_program(texts)`
+    gives the reference's program of those files' texts and its reading
+    of the program's paths: None where they are in the program's ids,
+    else an object whose `fused_strings(path_strings)` gives each as a
+    path string of the program, "" where it is no walk."""
+    path = os.path.join(KINDS, name + ".py")
+    if not os.path.isfile(path):
+        raise ValueError("no generator kind %r: %s is not there" % (name, path))
+    mod = load_file(path, "bfbbench_kind_" + name)
+    missing = [f for f in ("write", "case_program") if not callable(getattr(mod, f, None))]
+    if missing:
+        raise ValueError("generator kind %s gives no %s" % (path, ", ".join(missing)))
+    return mod
+
+
+def cell_kind(cell: Cell):
+    """The generator kind of the cell's configuration."""
+    return load_kind(cell.config["generator"]["kind"])
+
+
+def case_program(kind, case: Case):
+    """The reference's program of the case's LH files, and the kind's
+    reading of the program's paths."""
+    texts = []
+    for fn in case.lh:
+        with open(fn) as f:
+            texts.append(f.read())
+    return kind.case_program(texts)
 
 
 def make_cases(cell: Cell, seed: int, workdir: str) -> List[Case]:
@@ -136,7 +154,7 @@ def make_cases(cell: Cell, seed: int, workdir: str) -> List[Case]:
     seed offers the same work, in an order drawn from `seed` where the
     traffic's `order` is "seed", in the listed order where it is
     "listed"."""
-    recipe, traffic = cell.config["generator"], cell.traffic
+    recipe, traffic, kind = cell.config["generator"], cell.traffic, cell_kind(cell)
     n = int(traffic["cycle"])
     listed = traffic["cases"]
     if len(listed) != n:
@@ -145,7 +163,7 @@ def make_cases(cell: Cell, seed: int, workdir: str) -> List[Case]:
     if traffic["order"] == "seed":
         order = [int(j) for j in np.random.default_rng([seed, 0]).permutation(n)]
     return [
-        Case("c%d" % i, _write(recipe, int(listed[j]), j, os.path.join(workdir, "c%d" % i)), j)
+        Case("c%d" % i, kind.write(recipe, int(listed[j]), j, os.path.join(workdir, "c%d" % i)), j)
         for i, j in enumerate(order)
     ]
 
@@ -324,27 +342,25 @@ def run_window(cell: Cell, entry, cycle: List[Case], seconds: float, synchronize
 # -------------------------------------------------------------- judgement
 
 
-def judge(window: Window, limits: dict) -> Tuple[List[Optional[reference.Verdict]], Dict[str, float], int]:
-    """Judge every answer of the window with the reference; returns the
-    verdicts (None for a missing answer), the numbers compared, and how
-    many answers fail one of their limits."""
-    programs: Dict[str, Tuple[reference.Program, float, Optional[reference.Fusion]]] = {}
+def judge(window: Window, cell: Cell) -> Tuple[List[Optional[reference.Verdict]], Dict[str, float], int]:
+    """Judge every answer of the window with the reference, each case
+    read as the cell's generator kind reads it; returns the verdicts
+    (None for a missing answer), the numbers compared, and how many
+    answers fail one of their limits."""
+    kind, limits = cell_kind(cell), cell.limits
+    programs: Dict[str, Tuple[reference.Program, float, object]] = {}
     verdicts: List[Optional[reference.Verdict]] = []
     for case, ans in window.answers:
         if case.key not in programs:
-            texts = []
-            for fn in case.lh:
-                with open(fn) as f:
-                    texts.append(f.read())
-            prog, fusion = reference.case_program(texts)
-            programs[case.key] = (prog, prog.lp_bound(), fusion)
-        prog, lp, fusion = programs[case.key]
+            prog, reading = case_program(kind, case)
+            programs[case.key] = (prog, prog.lp_bound(), reading)
+        prog, lp, reading = programs[case.key]
         if ans.x is None:
             verdicts.append(None)
             continue
-        # the program reports its epsilon after the bias; a fused case's
-        # path is judged on the fused arm
-        paths = ans.paths if fusion is None else fusion.fused_strings(ans.paths)
+        # the program reports its epsilon after the bias; a path not in
+        # the program's ids (a fused case's) is judged as the kind reads it
+        paths = ans.paths if reading is None else reading.fused_strings(ans.paths)
         verdicts.append(reference.judge(prog, lp, ans.x, ans.eps + prog.bias, None, paths))
     found = [v for v in verdicts if v is not None]
 
@@ -376,11 +392,7 @@ def judge(window: Window, limits: dict) -> Tuple[List[Optional[reference.Verdict
 def load_reader(name: str):
     """The reader of metric `name`: `metrics/<name>.py`, whose
     `read(ctx)` gives the number or None where it finds nothing."""
-    path = os.path.join(HERE, "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location("bfbbench_metric_" + name.replace(".", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return load_file(os.path.join(HERE, "metrics", name + ".py"), "bfbbench_metric_" + name)
 
 
 def cell_metrics(bench: dict, workload: str, traced: bool) -> List[dict]:
@@ -463,7 +475,7 @@ def run_cell(
         peak = int(torch.cuda.max_memory_allocated()) if on_card else 0
         if on_card:
             torch.cuda.empty_cache()
-        verdicts, numbers, failed = judge(window, cell.limits)
+        verdicts, numbers, failed = judge(window, cell)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -76,7 +76,7 @@ def window_line(cell, entry, cycle, seconds, sync, on_card, traced, with_spans, 
                     json.dump({"window": bounds, "spans": laid, "intervals": intervals}, f)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    _, numbers, failed = run.judge(window, cell.limits)
+    _, numbers, failed = run.judge(window, cell)
     line = {
         "spans": int(with_spans),
         "trace": int(traced),

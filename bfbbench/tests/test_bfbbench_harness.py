@@ -133,7 +133,8 @@ def test_reference_is_the_programs_block_formulation(tmp_path):
     sc = gen.simulate_sc_case(seed=3, n_clones=3, n_segments=8, topology="star")
     names = gen.write_sc_clones(sc, str(tmp_path / "s"))
     prog = [p for p in sc_mod.extract_sc_programs(",".join(names), "") if p is not None][0]
-    ours = reference.Program([reference.parse_lh(c.lh_text) for c in sc.cases])
+    ours, reading = run.load_kind("sc").case_program([c.lh_text for c in sc.cases])
+    assert reading is None
     rng = np.random.default_rng(3)
     for _ in range(100):
         x = rng.integers(0, 3, size=ours.V).astype(float)

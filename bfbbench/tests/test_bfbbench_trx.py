@@ -112,7 +112,7 @@ def test_fused_program_is_the_programs(tmp_path, monkeypatch, recipe_seed, orien
     programs = pipeline.build_case(fn).programs
     assert len(programs) == 1
     prog = programs[0]
-    ours, fusion = reference.case_program([case.lh_text])
+    ours, fusion = run.load_kind("bfb_c1").case_program([case.lh_text])
     assert fusion is not None and ours.n == 60 and ours.V == prog.num_vars == 3660
     assert np.array_equal(ours.residual.toarray(), np.concatenate([prog.A_seg, prog.A_fbi]))
     assert np.array_equal(ours.target, np.concatenate([prog.c_seg, prog.c_fbi]))
@@ -130,7 +130,7 @@ def _solved(tmp_path, monkeypatch, recipe_seed, orientation):
     case = gen_trx.simulate_c1_case(recipe_seed, arms=(8, 8), orientation=orientation)
     fn = gen_trx.write_c1_case(case, str(tmp_path / "c"))[0]
     res = pipeline.run_bfb(fn, solver="exact", device="cpu")
-    prog, fusion = reference.case_program([case.lh_text])
+    prog, fusion = run.load_kind("bfb_c1").case_program([case.lh_text])
     x = res.chromosomes[0].element_cn.astype(float)
     return prog, fusion, prog.lp_bound(), x, res.ilp_error + prog.bias, res.path_strings
 
